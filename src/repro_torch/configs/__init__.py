@@ -1,0 +1,23 @@
+"""Config registry of the PyTorch port: ``get_config(arch_id)``.
+
+Only the architectures the port serves are registered; the JAX package's
+registry (``repro.configs``) lists every assigned architecture.
+"""
+
+from repro_torch.configs.base import ModelConfig, pad_to, reduce_for_smoke
+from repro_torch.configs.qwen3_4b import CONFIG as _qwen3_4b
+
+CONFIGS: dict[str, ModelConfig] = {c.name: c for c in (_qwen3_4b,)}
+
+for _c in CONFIGS.values():
+    _c.validate()
+
+
+def get_config(name: str) -> ModelConfig:
+    if name not in CONFIGS:
+        raise KeyError(f"unknown architecture {name!r}; have {sorted(CONFIGS)}")
+    return CONFIGS[name]
+
+
+__all__ = ["CONFIGS", "ModelConfig", "get_config", "pad_to",
+           "reduce_for_smoke"]

@@ -1,0 +1,52 @@
+"""Padding and dispatch in front of the kernels (counterpart of
+``repro/kernels/ops.py``).
+
+The JAX package picks a backend with a global switch; here the tensors'
+device decides: CUDA tensors launch the kernel, CPU tensors take its
+plain version (see each kernel module). Padding rules follow the JAX
+package where the kernel needs them.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.decode_attention import decode_attention as _decode
+from repro_torch.kernels.flash_attention import BLOCK
+from repro_torch.kernels.flash_attention import flash_attention as _flash
+
+
+def _pad_to(x, axis: int, multiple: int):
+    """Zero-pad ``axis`` of ``x`` up to a multiple of ``multiple``."""
+    pad = (-x.shape[axis]) % multiple
+    if pad == 0:
+        return x
+    return F.pad(x, [0, 0] * (x.dim() - 1 - axis) + [0, pad])
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: Optional[int] = None, q_offset: int = 0):
+    """q [B, H, Sq, hd]; k, v [B, KV, Skv, hd] -> [B, H, Sq, hd].
+
+    Pads Sq / Skv to the kernel's tile (``BLOCK`` rows) and masks the
+    padded key columns with ``kv_len`` (``ops.py:58-65`` of the JAX
+    package, which pads to its own 128-row blocks)."""
+    Sq, Skv = q.shape[2], k.shape[2]
+    qp = _pad_to(q.contiguous(), 2, BLOCK)
+    kp = _pad_to(k.contiguous(), 2, BLOCK)
+    vp = _pad_to(v.contiguous(), 2, BLOCK)
+    out = _flash(qp, kp, vp, causal=causal, window=window, q_offset=q_offset,
+                 kv_len=Skv)
+    return out[:, :, :Sq]
+
+
+def decode_attention(q, k, v, lengths):
+    """q [B, H, hd]; k, v [B, S, KV, hd]; lengths [B] -> [B, H, hd].
+
+    The JAX package pads S to its 256-entry block (``ops.py:72-77``); the
+    CUDA kernel ends its loop at each sequence's length (<= S) and masks
+    its last tile itself, so the cache is passed as it is — no copy."""
+    return _decode(q.contiguous(), k, v, lengths.to(torch.int32))

@@ -1,0 +1,352 @@
+"""Continuous batching scheduler (counterpart of
+``repro/serving/scheduler.py``; FIFO admission only).
+
+Drives a :class:`GenerationEngine`'s slot API: admits queued requests into
+free decode slots as soon as they open (prefill on admit), runs one fused
+decode chunk for all active slots per tick, retires finished requests at
+chunk boundaries and backfills at once.
+
+Exactly one host read per tick: the first tokens of this tick's
+admissions and the chunk's token block travel to the host in a single
+transfer. The chunk length is budget-aligned: the largest power of two
+not above ``decode_chunk`` or the earliest remaining budget, so a chunk
+never runs past the first completion and the engine sees a bounded set of
+lengths.
+
+Sampling noise comes from a ``torch.Generator`` on the engine's device,
+seeded from ``seed`` (the JAX scheduler splits a ``jax.random`` key).
+
+Not ported yet: QoS admission (``admission=`` raises), tracing, fault
+injection and the paged-pool admission gates.
+
+Thread-safety: ``submit`` is lock-free (the FIFO deque's append is atomic)
+so request threads never queue behind a decode chunk; ``tick``, ``poll``
+and ``cancel`` take the scheduler lock. Engine state is only touched from
+inside ``tick``, by whichever single thread drives the loop.
+"""
+
+from __future__ import annotations
+
+import itertools
+import threading
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.serving.engine import GenerationEngine
+from repro_torch.serving.tracing import now as _now
+
+
+@dataclass(eq=False)
+class Request:
+    id: int
+    prompt: List[int]
+    max_new_tokens: int = 32
+    temperature: float = 0.0
+    # filled by the scheduler
+    output: List[int] = field(default_factory=list)
+    slot: int = -1
+    admitted_at_tick: int = -1
+    finished_at_tick: int = -1
+    # lifecycle stamps on the serving clock (tracing.now)
+    submitted_at_s: float = 0.0
+    admitted_at_s: Optional[float] = None
+    finished_at_s: Optional[float] = None
+    first_token_s: Optional[float] = None
+    cancelled: bool = False
+    error: Optional[str] = None
+    error_code: Optional[str] = None
+
+    @property
+    def done(self) -> bool:
+        return self.finished_at_tick >= 0
+
+
+@dataclass
+class SchedulerStats:
+    ticks: int = 0
+    decode_steps: int = 0             # engine decode steps (chunk = K steps)
+    chunks: int = 0                   # fused chunk dispatches (sync points)
+    prefills: int = 0
+    emitted_tokens: int = 0
+    completed: int = 0
+    cancelled: int = 0
+    cache_overflows: int = 0          # retired with MAX_SEQ_EXCEEDED
+    rejected: int = 0                 # retired with PROMPT_TOO_LONG
+    engine_faults: int = 0            # retired with ENGINE_FAULT
+    wall_s: float = 0.0               # accrued per tick
+    occupancy_sum: int = 0            # sum of active-batch sizes per step
+    max_occupancy: int = 0
+
+    @property
+    def tokens_per_s(self) -> float:
+        return self.emitted_tokens / self.wall_s if self.wall_s else 0.0
+
+    @property
+    def mean_batch_size(self) -> float:
+        return self.occupancy_sum / self.decode_steps \
+            if self.decode_steps else 0.0
+
+
+class ContinuousBatchingScheduler:
+    def __init__(self, engine: GenerationEngine, *, seed: int = 0,
+                 retain_completed: int = 1024, admission=None,
+                 decode_chunk: Optional[int] = None):
+        if admission is not None:
+            raise NotImplementedError(
+                "QoS admission is not ported yet; the PyTorch scheduler "
+                "admits in FIFO order")
+        self.engine = engine
+        # scheduler-local override, floored to a power of two like the
+        # engine default
+        self._decode_chunk = 1 << (max(1, int(decode_chunk)).bit_length() - 1) \
+            if decode_chunk is not None else None
+        self.queue: deque[Request] = deque()
+        self.active: Dict[int, Request] = {}      # slot -> request
+        self._temps = np.zeros((engine.max_batch,), np.float32)
+        # requests placed this tick whose on-device first token has not
+        # been read yet (read with the chunk at the tick's sync point)
+        self._pending_first: List[Tuple[Request, torch.Tensor]] = []
+        self._gen = torch.Generator(device=engine.device).manual_seed(seed)
+        self._ids = itertools.count()
+        self._lock = threading.RLock()
+        self.retain_completed = retain_completed
+        self._completed: Dict[int, Request] = {}
+        self._pending: Dict[int, Request] = {}   # queued or active, by id
+        self.stats = SchedulerStats()
+
+    @property
+    def decode_chunk(self) -> int:
+        return self._decode_chunk if self._decode_chunk is not None \
+            else self.engine.decode_chunk
+
+    def submit(self, prompt: List[int], *, max_new_tokens: int = 32,
+               temperature: float = 0.0) -> Request:
+        """Enqueue a request (lock-free; see the module docstring)."""
+        req = Request(next(self._ids), list(prompt), max_new_tokens,
+                      temperature, submitted_at_s=_now())
+        self._pending[req.id] = req
+        self.queue.append(req)
+        return req
+
+    def cancel(self, request_id: int) -> bool:
+        """Mark a queued or running request cancelled; the decode loop
+        honours the mark at its next tick. False when unknown or done."""
+        with self._lock:
+            req = self._pending.get(request_id)
+            if req is None or req.done:
+                return False
+            req.cancelled = True
+        return True
+
+    def poll(self, request_id: int) -> Optional[Request]:
+        """Completed request by id, else None (still queued/active)."""
+        with self._lock:
+            return self._completed.get(request_id)
+
+    def queued_count(self) -> int:
+        return len(self.queue)
+
+    def has_work(self) -> bool:
+        return bool(self.queue or self.active)
+
+    def active_count(self) -> int:
+        return len(self.active)
+
+    # -- retire paths ----------------------------------------------------------
+
+    def _retire(self, req: Request):
+        req.finished_at_tick = self.stats.ticks
+        req.finished_at_s = _now()
+        self._pending.pop(req.id, None)
+        self._completed[req.id] = req
+        while len(self._completed) > self.retain_completed:
+            self._completed.pop(next(iter(self._completed)))
+
+    def _release(self, req: Request):
+        self.engine.release_slot(req.slot)
+        del self.active[req.slot]
+        self._retire(req)
+
+    def _cancel_retire(self, req: Request):
+        req.error = (f"cancelled after {len(req.output)} generated tokens"
+                     if req.output else "cancelled before starting")
+        req.error_code = "CANCELLED"
+        self._retire(req)
+        self.stats.cancelled += 1
+
+    def _too_long(self, req: Request):
+        req.error = (f"prompt of {len(req.prompt)} tokens leaves no "
+                     f"generation headroom (max_seq {self.engine.max_seq}, "
+                     f"max admissible {self.engine.max_prompt_len()})")
+        req.error_code = "PROMPT_TOO_LONG"
+        self._retire(req)
+        self.stats.rejected += 1
+
+    def _overflow(self, req: Request):
+        """Cache full before the request finished: retire cleanly (the
+        engine's termination mask already froze the slot)."""
+        req.error = (f"sequence reached max_seq {self.engine.max_seq} after "
+                     f"{len(req.output)} generated tokens "
+                     f"(requested {req.max_new_tokens})")
+        req.error_code = "MAX_SEQ_EXCEEDED"
+        self._release(req)
+        self.stats.completed += 1
+        self.stats.cache_overflows += 1
+
+    def quarantine_active(self, reason: str):
+        """Retire every active slot as ENGINE_FAULT after a failed dispatch
+        or read (the batch's device state is no longer trusted) and drop
+        unread first tokens. Queued work is untouched."""
+        with self._lock:
+            for slot in sorted(self.active):
+                req = self.active.pop(slot)
+                self.engine.release_slot(slot)
+                req.error = f"engine fault: {reason}"
+                req.error_code = "ENGINE_FAULT"
+                self._retire(req)
+                self.stats.engine_faults += 1
+            self._pending_first.clear()
+
+    def _maybe_finish(self, req: Request):
+        eos = self.engine.eos_id
+        if (len(req.output) >= req.max_new_tokens
+                or (eos is not None and req.output and req.output[-1] == eos)):
+            self._release(req)
+            self.stats.completed += 1
+
+    # -- scheduling ----------------------------------------------------------
+
+    def _sweep_cancelled(self):
+        """Honour cancellation marks before admission, so a slot freed by a
+        running cancel backfills this very tick."""
+        for req in [r for r in self.active.values() if r.cancelled]:
+            self.engine.release_slot(req.slot)
+            del self.active[req.slot]
+            self._cancel_retire(req)
+        for req in [r for r in list(self.queue) if r.cancelled]:
+            try:
+                self.queue.remove(req)
+            except ValueError:
+                continue
+            self._cancel_retire(req)
+
+    def _place(self, req: Request, slot: int) -> bool:
+        """Dispatch prefill + on-device first token; no host sync here.
+        False when the admission faulted: the request retires as
+        ENGINE_FAULT and the slot stays free."""
+        req.admitted_at_s = _now()
+        try:
+            first = self.engine.insert_request(req.prompt, slot)
+        except Exception as e:     # the engine released the slot already
+            req.error = f"engine fault during admission: {e}"
+            req.error_code = "ENGINE_FAULT"
+            self._retire(req)
+            self.stats.engine_faults += 1
+            return False
+        req.slot = slot
+        req.admitted_at_tick = self.stats.ticks
+        self._temps[slot] = req.temperature
+        self.active[slot] = req
+        self._pending_first.append((req, first))
+        self.stats.prefills += 1
+        return True
+
+    def _admit(self):
+        free = self.engine.free_slots()
+        while free and self.queue:
+            req = self.queue.popleft()            # FIFO: no starvation
+            if req.cancelled:
+                self._cancel_retire(req)
+                continue
+            if not self.engine.fits_prompt(len(req.prompt)):
+                self._too_long(req)
+                continue
+            slot = free.pop(0)
+            if not self._place(req, slot):
+                free.insert(0, slot)
+
+    def _read(self, toks, emitted) -> Tuple[List[int], Optional[np.ndarray],
+                                            Optional[np.ndarray]]:
+        """THE tick's host sync: pending first tokens and the chunk block
+        in one device -> host transfer."""
+        parts = [f.reshape(1) for _, f in self._pending_first]
+        if toks is not None:
+            parts += [toks.reshape(-1), emitted.to(torch.int32).reshape(-1)]
+        if not parts:
+            return [], None, None
+        flat = torch.cat(parts).cpu().numpy()
+        n = len(self._pending_first)
+        firsts = [int(x) for x in flat[:n]]
+        if toks is None:
+            return firsts, None, None
+        size = toks.numel()
+        return (firsts, flat[n:n + size].reshape(toks.shape),
+                flat[n + size:].reshape(toks.shape).astype(bool))
+
+    def tick(self):
+        """One iteration: admit -> decode chunk -> one host read -> retire."""
+        t0 = _now()
+        with self._lock:
+            self._sweep_cancelled()
+            self._admit()
+            toks = emitted = None
+            if self.active:
+                budgets = np.zeros((self.engine.max_batch,), np.int32)
+                pending = {id(r) for r, _ in self._pending_first}
+                for slot, req in self.active.items():
+                    have = len(req.output) + (1 if id(req) in pending else 0)
+                    budgets[slot] = max(0, req.max_new_tokens - have)
+                # budget-aligned pow2 chunk: never decode past the earliest
+                # completion
+                k = min(self.decode_chunk,
+                        max(1, min(int(budgets[s]) for s in self.active)))
+                k = 1 << (k.bit_length() - 1)
+                try:
+                    toks, emitted = self.engine.step_chunk(
+                        self._gen, self._temps, budgets, k)
+                except Exception as e:
+                    # a failed dispatch leaves the co-batch's device state
+                    # untrusted: retire it, keep the loop alive
+                    self.quarantine_active(f"chunk dispatch failed: {e}")
+            try:
+                firsts, toks, emitted = self._read(toks, emitted)
+            except Exception as e:     # the sync surfaces device failures
+                self.quarantine_active(f"chunk sync failed: {e}")
+                firsts, toks, emitted = [], None, None
+            for (req, _), first in zip(self._pending_first, firsts):
+                req.output.append(first)
+                req.first_token_s = _now()
+                self.stats.emitted_tokens += 1
+            self._pending_first.clear()
+            if toks is not None:
+                counts = emitted.sum(axis=1).astype(np.int32)
+                self.engine.commit_chunk(counts)
+                per_step = emitted.sum(axis=0)
+                self.stats.chunks += 1
+                self.stats.decode_steps += int((per_step > 0).sum())
+                self.stats.occupancy_sum += int(per_step.sum())
+                self.stats.max_occupancy = max(self.stats.max_occupancy,
+                                               int(per_step.max(initial=0)))
+                for slot, req in list(self.active.items()):
+                    n = int(counts[slot])
+                    if n:
+                        req.output.extend(int(t) for t in toks[slot, :n])
+                        self.stats.emitted_tokens += n
+                    self._maybe_finish(req)
+                    if not req.done and (self.engine.context_len(slot)
+                                         >= self.engine.max_seq):
+                        self._overflow(req)
+            self.stats.ticks += 1
+            self.stats.wall_s += _now() - t0
+
+    def run(self, *, max_ticks: int = 10_000) -> SchedulerStats:
+        """Run until queue and active slots drain (or the tick budget)."""
+        for _ in range(max_ticks):
+            if not self.has_work():
+                break
+            self.tick()
+        return self.stats

@@ -1,0 +1,131 @@
+"""Rules of the PyTorch port, checked statically and on the CPU:
+
+- nothing under ``src/repro_torch/`` or in ``chip_smoke.py`` imports JAX or
+  the JAX package (``repro``), and importing the port loads neither;
+- entry points default to ``device="cuda"`` and raise without a GPU
+  (no silent CPU fallback);
+- the parts of the JAX engine this slice does not port raise instead of
+  falling back (``paged=True``, ``prefix_cache=True``);
+- each kernel's CUDA source names the TPU kernel it replaces, and the
+  kernel modules call no library attention.
+"""
+
+import ast
+import inspect
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_roots(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield (node.module or "").split(".")[0]
+        elif isinstance(node, ast.Call):
+            fn = node.func
+            name = getattr(fn, "attr", getattr(fn, "id", ""))
+            if name in ("import_module", "__import__") and node.args and \
+                    isinstance(node.args[0], ast.Constant):
+                yield str(node.args[0].value).split(".")[0]
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_jax_package_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = sorted(set(_imported_roots(tree)) & set(FORBIDDEN))
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_importing_the_port_loads_no_jax():
+    code = ("import sys; import repro_torch.core.service, "
+            "repro_torch.core.assets, repro_torch.models.convert; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]; assert not bad, bad")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   timeout=120)
+
+
+def _device_entry_points():
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import reduce_for_smoke
+    from repro_torch.core.assets import _EngineWrapper
+    from repro_torch.device import resolve_device
+    from repro_torch.models import convert, transformer
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import GenerationEngine
+    model = build_model(reduce_for_smoke(get_config("qwen3-4b")))
+    return (resolve_device, GenerationEngine.__init__,
+            _EngineWrapper.__init__, transformer.init_params,
+            transformer.init_cache, convert.to_torch_params, model.init,
+            model.init_cache)
+
+
+def test_entry_points_default_to_cuda():
+    for fn in _device_entry_points():
+        assert inspect.signature(fn).parameters["device"].default == "cuda", \
+            fn.__qualname__
+
+
+def test_default_device_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    from repro_torch.core.assets import EXCHANGE
+    from repro_torch.device import resolve_device
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        EXCHANGE.get("qwen3-4b").build()
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import reduce_for_smoke
+    from repro_torch.models.convert import to_torch_params
+    from repro_torch.models.model import build_model
+    model = build_model(reduce_for_smoke(get_config("qwen3-4b")))
+    for call in (model.init, lambda: model.init_cache(1, 8),
+                 lambda: to_torch_params({"embed": [[0.0]]})):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_build_rejects_params_of_another_shape():
+    import numpy as np
+    from repro_torch.core.assets import EXCHANGE
+    w = EXCHANGE.get("qwen3-4b").build(device="cpu", max_seq=32)
+    params = {k: v for k, v in w.params.items()}
+    params["embed"] = np.zeros((8, 8), np.float32)
+    with pytest.raises(ValueError, match="embed"):
+        EXCHANGE.get("qwen3-4b").build(device="cpu", max_seq=32,
+                                       params=params)
+
+
+@pytest.mark.parametrize("kw", [{"paged": True}, {"prefix_cache": True}])
+def test_unported_engine_options_raise(kw):
+    from repro_torch.core.assets import EXCHANGE
+    with pytest.raises(NotImplementedError, match="next slice"):
+        EXCHANGE.get("qwen3-4b").build(device="cpu", max_seq=32, **kw)
+
+
+def test_kernel_sources_name_their_tpu_kernel_and_use_no_library():
+    from repro_torch.kernels import build
+    for name in build.SOURCES:
+        src = (PORT / "kernels" / "csrc" / f"{name}.cu").read_text()
+        assert f"repro/kernels/{name}.py::{name}" in src
+        assert "sm_90a" in src
+        assert 'extern "C"' in src
+        mod = (PORT / "kernels" / f"{name}.py").read_text()
+        assert "scaled_dot_product_attention" not in mod
+        assert "_plain" in mod and ".launches += 1" in mod
