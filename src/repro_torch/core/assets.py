@@ -33,7 +33,10 @@ class _EngineWrapper(MAXModelWrapper):
     def __init__(self, asset: ModelAsset, *, smoke: bool = True,
                  max_batch: int = 4, max_seq: int = 128, seed: int = 0,
                  decode_chunk: int = 8, paged: bool = False,
-                 prefix_cache: bool = False, device: DeviceLike = "cuda",
+                 page_size: int = 16, kv_pool_blocks: Optional[int] = None,
+                 prefix_cache: bool = False,
+                 prefix_cache_pages: Optional[int] = None,
+                 device: DeviceLike = "cuda",
                  params: Optional[Mapping[str, Any]] = None):
         dev = resolve_device(device)
         cfg = asset.config
@@ -51,7 +54,10 @@ class _EngineWrapper(MAXModelWrapper):
                                        max_batch=max_batch, max_seq=max_seq,
                                        eos_id=TOKENIZER.eos_id,
                                        decode_chunk=decode_chunk,
-                                       paged=paged, prefix_cache=prefix_cache,
+                                       paged=paged, page_size=page_size,
+                                       kv_pool_blocks=kv_pool_blocks,
+                                       prefix_cache=prefix_cache,
+                                       prefix_cache_pages=prefix_cache_pages,
                                        device=dev)
         self.MODEL_META_DATA = asset.metadata
 

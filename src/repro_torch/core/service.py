@@ -277,6 +277,7 @@ class BatchedService(InferenceService):
             "decode_chunk": self.scheduler.decode_chunk,
             "prefills": ss.prefills,
             "cache_overflows": ss.cache_overflows,
+            "pool_exhausted": ss.pool_exhausted,
             "kv_cache": self.engine.kv_stats(),
             "emitted_tokens": ss.emitted_tokens,
             "tokens_per_s": round(ss.tokens_per_s, 2),
@@ -290,6 +291,10 @@ class BatchedService(InferenceService):
                                 if ttft else None),
                      "max_ms": round(ttft[-1] * 1e3, 3) if ttft else None},
         })
+        if self.engine.prefix_cache is not None:
+            # also nested under kv_cache; top-level so dashboards need not
+            # know the KV layout to find hit rates
+            out["prefix_cache"] = self.engine.prefix_stats()
         if self._worker_error:
             out["last_worker_error"] = self._worker_error
         return out

@@ -21,7 +21,13 @@ from typing import Dict, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("flash_attention", "decode_attention")
+# each source and the plain C entry points its library must export
+ENTRY_POINTS: Dict[str, Tuple[str, ...]] = {
+    "flash_attention": ("flash_attention_fwd",),
+    "decode_attention": ("decode_attention_fwd",
+                         "paged_decode_attention_fwd"),
+}
+SOURCES = tuple(ENTRY_POINTS)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
@@ -88,5 +94,9 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         if name not in _libs:
             _finish(name, _start(name))
-            _libs[name] = ctypes.CDLL(str(_target(name)))
+            lib = ctypes.CDLL(str(_target(name)))
+            missing = [f for f in ENTRY_POINTS[name] if not hasattr(lib, f)]
+            if missing:
+                raise RuntimeError(f"{name}.cu built without {missing}")
+            _libs[name] = lib
         return _libs[name]

@@ -1,8 +1,10 @@
 // Decode attention: one query token per sequence against a contiguous KV
-// cache, for sm_90a.
+// cache or a paged KV pool, for sm_90a.
 //
-// Replaces the TPU kernel repro/kernels/decode_attention.py::decode_attention
-// (body _decode_kernel). Same contract:
+// Replaces the TPU kernels repro/kernels/decode_attention.py::decode_attention
+// (body _decode_kernel) and
+// repro/kernels/decode_attention.py::paged_decode_attention (body
+// _paged_decode_kernel). Contiguous contract:
 //   q [B, H, hd]; k, v [B, S, KV, hd]; lengths [B] int32 -> o [B, H, hd]
 //   cache entries at positions >= lengths[b] are invisible and are never
 //   read: the Pallas kernel skips blocks wholly past the length, and this
@@ -40,6 +42,22 @@
 // (position, head) and a P.V loop over shared memory, with one tile in
 // flight (no cp.async pipeline).
 //
+// Paged variant (paged_decode_attention_fwd): the same kernel with only the
+// row addressing changed. The cache is a shared pool k, v [N, P, KV, hd] of
+// N pages of P positions, and block_table [B, nb] maps page i of sequence b
+// to a pool page; position t of sequence b lives at row t % P of page
+// block_table[b, t / P], with the same KV * hd row stride inside a page as
+// the contiguous cache. P need not divide the 64-position tile: before each
+// tile the block computes its 64 row offsets into shared memory (one table
+// read per row), so a tile may span several pages (four at P = 16) or part
+// of one. A table entry outside [0, N) is a sentinel and is clamped before
+// it is dereferenced; such entries only ever cover positions at or past the
+// length, which are never read anyway, so poisoned unallocated pages cannot
+// reach the output. The split grid covers the table's nb * P positions and
+// is sized from B, KV and nb * P alone, like the contiguous one. Bound on
+// an H100: the same bytes as the contiguous kernel (the valid pages of k
+// and v), plus B * nb table entries.
+//
 // Interface: plain C, launched on the caller's stream; returns the CUDA
 // error code after the launches (0 on success).
 
@@ -65,12 +83,18 @@ __device__ __forceinline__ void from_f32(float x, __nv_bfloat16* out) { *out = _
 // Partial attention of one (b, kv_head, split). Writes, for each head g of
 // the group, ml = (running max m, sum l) and acc[HD] = sum_t exp(s_t - m) v_t
 // over the split's positions below the length.
-template <typename QT, typename CT, int HD>
+//
+// PAGED: k and v are pools [N, P, KV, HD] reached through
+// block_table [B, nb] (S = nb * P); otherwise they are [B, S, KV, HD] and
+// block_table, N and P are unused.
+template <typename QT, typename CT, int HD, bool PAGED>
 __global__ void __launch_bounds__(NT, MIN_BLOCKS)
 decode_partial(const QT* __restrict__ q, const CT* __restrict__ k,
                const CT* __restrict__ v, const int* __restrict__ lengths,
+               const int* __restrict__ block_table,
                float* __restrict__ ws_acc, float* __restrict__ ws_ml,
-               int H, int KV, int S, int split_len, float scale) {
+               int H, int KV, int S, int N, int P, int split_len,
+               float scale) {
   constexpr int VEC = 16 / sizeof(CT);       // cache elements per 16-byte load
   constexpr int ROWV = HD / VEC;             // 16-byte vectors per cache row
   constexpr int PL = HD / 32;                // head-dim elements per lane
@@ -78,6 +102,7 @@ decode_partial(const QT* __restrict__ q, const CT* __restrict__ k,
   __shared__ __align__(16) CT sV[TILE * HD];
   __shared__ float sP[MAXG][TILE];
   __shared__ float sAlpha[MAXG];
+  __shared__ size_t sOff[PAGED ? TILE : 1];   // row offsets of a paged tile
 
   const int b = blockIdx.x;
   const int kvh = blockIdx.y;
@@ -125,18 +150,34 @@ decode_partial(const QT* __restrict__ q, const CT* __restrict__ k,
   for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
 
   const size_t row_stride = (size_t)KV * HD;                  // elements
-  const CT* kb = k + (size_t)b * S * row_stride + (size_t)kvh * HD;
-  const CT* vb = v + (size_t)b * S * row_stride + (size_t)kvh * HD;
+  // contiguous: sequence b's rows start here; paged: page offsets are
+  // added per row (sOff)
+  const size_t seq0 = PAGED ? 0 : (size_t)b * S * row_stride;
+  const CT* kb = k + seq0 + (size_t)kvh * HD;
+  const CT* vb = v + seq0 + (size_t)kvh * HD;
+  const int* bt = PAGED ? block_table + (size_t)b * (S / P) : nullptr;
 
   for (int t0 = t_begin; t0 < t_end; t0 += TILE) {
     __syncthreads();   // the previous tile's readers are done
+    if constexpr (PAGED) {
+      // one table read per row; a sentinel (>= N) is clamped, and only
+      // rows below t_end (inside allocated pages) are ever loaded
+      for (int r = tid; r < TILE; r += NT) {
+        const int t = min(t0 + r, t_end - 1);
+        int page = bt[t / P];
+        page = page < 0 ? 0 : (page >= N ? N - 1 : page);
+        sOff[r] = ((size_t)page * P + t % P) * row_stride;
+      }
+      __syncthreads();
+    }
     // rows at or past t_end are zero-filled and never read from memory
     for (int idx = tid; idx < TILE * ROWV; idx += NT) {
       const int r = idx / ROWV, c = idx % ROWV;
       uint4 kv4 = make_uint4(0, 0, 0, 0), vv4 = make_uint4(0, 0, 0, 0);
       if (t0 + r < t_end) {
-        kv4 = *reinterpret_cast<const uint4*>(kb + (size_t)(t0 + r) * row_stride + c * VEC);
-        vv4 = *reinterpret_cast<const uint4*>(vb + (size_t)(t0 + r) * row_stride + c * VEC);
+        const size_t off = PAGED ? sOff[r] : (size_t)(t0 + r) * row_stride;
+        kv4 = *reinterpret_cast<const uint4*>(kb + off + c * VEC);
+        vv4 = *reinterpret_cast<const uint4*>(vb + off + c * VEC);
       }
       *reinterpret_cast<uint4*>(&sK[r * HD + c * VEC]) = kv4;
       *reinterpret_cast<uint4*>(&sV[r * HD + c * VEC]) = vv4;
@@ -254,15 +295,16 @@ decode_combine(const float* __restrict__ ws_acc, const float* __restrict__ ws_ml
   from_f32(l == 0.f ? 0.f : a / l, &o[(size_t)bh * HD + d]);
 }
 
-template <typename QT, typename CT, int HD>
+template <typename QT, typename CT, int HD, bool PAGED>
 int launch(const void* q, const void* k, const void* v, const int* lengths,
-           void* o, float* ws, int B, int H, int KV, int S, int split_len,
-           int nsplit, cudaStream_t stream) {
+           const int* block_table, void* o, float* ws, int B, int H, int KV,
+           int S, int N, int P, int split_len, int nsplit, cudaStream_t stream) {
   float* ws_acc = ws;
   float* ws_ml = ws + (size_t)B * H * nsplit * HD;
-  decode_partial<QT, CT, HD><<<dim3(B, KV, nsplit), NT, 0, stream>>>(
+  decode_partial<QT, CT, HD, PAGED><<<dim3(B, KV, nsplit), NT, 0, stream>>>(
       static_cast<const QT*>(q), static_cast<const CT*>(k), static_cast<const CT*>(v),
-      lengths, ws_acc, ws_ml, H, KV, S, split_len, 1.0f / sqrtf((float)HD));
+      lengths, block_table, ws_acc, ws_ml, H, KV, S, N, P, split_len,
+      1.0f / sqrtf((float)HD));
   int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
   decode_combine<QT, HD><<<B * H, HD, 0, stream>>>(ws_acc, ws_ml, static_cast<QT*>(o),
@@ -270,16 +312,39 @@ int launch(const void* q, const void* k, const void* v, const int* lengths,
   return (int)cudaGetLastError();
 }
 
-template <typename QT>
+template <typename QT, bool PAGED>
 int dispatch_hd(const void* q, const void* k, const void* v, const int* lengths,
-                void* o, float* ws, int B, int H, int KV, int S, int hd,
-                int split_len, int nsplit, cudaStream_t s) {
+                const int* block_table, void* o, float* ws, int B, int H, int KV,
+                int S, int N, int P, int hd, int split_len, int nsplit,
+                cudaStream_t s) {
   if (hd == 128)
-    return launch<QT, __nv_bfloat16, 128>(q, k, v, lengths, o, ws, B, H, KV, S,
-                                          split_len, nsplit, s);
+    return launch<QT, __nv_bfloat16, 128, PAGED>(q, k, v, lengths, block_table, o, ws,
+                                                 B, H, KV, S, N, P, split_len, nsplit, s);
   if (hd == 64)
-    return launch<QT, __nv_bfloat16, 64>(q, k, v, lengths, o, ws, B, H, KV, S,
-                                         split_len, nsplit, s);
+    return launch<QT, __nv_bfloat16, 64, PAGED>(q, k, v, lengths, block_table, o, ws,
+                                                B, H, KV, S, N, P, split_len, nsplit, s);
+  return -1;
+}
+
+template <bool PAGED>
+int dispatch(const void* q, const void* k, const void* v, const void* block_table,
+             const void* lengths, void* o, void* ws, int B, int H, int KV, int S,
+             int N, int P, int hd, int q_dtype, int split_len, int nsplit,
+             void* stream) {
+  if (KV <= 0 || H % KV != 0 || H / KV > MAXG) return -1;
+  if (split_len <= 0 || split_len % TILE != 0 || nsplit <= 0 ||
+      (long long)split_len * nsplit < S || nsplit > 65535)
+    return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* lens = static_cast<const int*>(lengths);
+  const int* bt = static_cast<const int*>(block_table);
+  float* w = static_cast<float*>(ws);
+  if (q_dtype == 0)
+    return dispatch_hd<float, PAGED>(q, k, v, lens, bt, o, w, B, H, KV, S, N, P, hd,
+                                     split_len, nsplit, s);
+  if (q_dtype == 1)
+    return dispatch_hd<__nv_bfloat16, PAGED>(q, k, v, lens, bt, o, w, B, H, KV, S, N,
+                                             P, hd, split_len, nsplit, s);
   return -1;
 }
 
@@ -294,17 +359,20 @@ extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
                                     const void* lengths, void* o, void* ws, int B,
                                     int H, int KV, int S, int hd, int q_dtype,
                                     int split_len, int nsplit, void* stream) {
-  if (KV <= 0 || H % KV != 0 || H / KV > MAXG) return -1;
-  if (split_len <= 0 || split_len % TILE != 0 || nsplit <= 0 ||
-      (long long)split_len * nsplit < S || nsplit > 65535)
-    return -1;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* lens = static_cast<const int*>(lengths);
-  float* w = static_cast<float*>(ws);
-  if (q_dtype == 0)
-    return dispatch_hd<float>(q, k, v, lens, o, w, B, H, KV, S, hd, split_len, nsplit, s);
-  if (q_dtype == 1)
-    return dispatch_hd<__nv_bfloat16>(q, k, v, lens, o, w, B, H, KV, S, hd, split_len,
-                                      nsplit, s);
-  return -1;
+  return dispatch<false>(q, k, v, nullptr, lengths, o, ws, B, H, KV, S, 1, 1, hd,
+                         q_dtype, split_len, nsplit, stream);
+}
+
+// Paged: k_pool, v_pool [N, P, KV, hd] bf16; block_table [B, nb] int32
+// (entries outside [0, N) are sentinels); the split covers nb * P
+// positions. Same scratch, types and return values as decode_attention_fwd.
+extern "C" int paged_decode_attention_fwd(const void* q, const void* k_pool,
+                                          const void* v_pool, const void* block_table,
+                                          const void* lengths, void* o, void* ws,
+                                          int B, int H, int KV, int N, int P, int nb,
+                                          int hd, int q_dtype, int split_len,
+                                          int nsplit, void* stream) {
+  if (N <= 0 || P <= 0 || nb <= 0) return -1;
+  return dispatch<true>(q, k_pool, v_pool, block_table, lengths, o, ws, B, H, KV,
+                        nb * P, N, P, hd, q_dtype, split_len, nsplit, stream);
 }

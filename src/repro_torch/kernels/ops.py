@@ -15,6 +15,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.decode_attention import decode_attention as _decode
+from repro_torch.kernels.decode_attention import (
+    paged_decode_attention as _paged_decode,
+)
 from repro_torch.kernels.flash_attention import BLOCK
 from repro_torch.kernels.flash_attention import flash_attention as _flash
 
@@ -50,3 +53,13 @@ def decode_attention(q, k, v, lengths):
     CUDA kernel ends its loop at each sequence's length (<= S) and masks
     its last tile itself, so the cache is passed as it is — no copy."""
     return _decode(q.contiguous(), k, v, lengths.to(torch.int32))
+
+
+def paged_decode_attention(q, k_pool, v_pool, block_table, lengths):
+    """q [B, H, hd]; k_pool, v_pool [N, P, KV, hd]; block_table [B, nb];
+    lengths [B] -> [B, H, hd]. No padding: the page is the block
+    (``ops.py:80-88`` of the JAX package), and the kernel takes any page
+    size."""
+    return _paged_decode(q.contiguous(), k_pool, v_pool,
+                         block_table.to(torch.int32),
+                         lengths.to(torch.int32))

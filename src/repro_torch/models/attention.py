@@ -8,7 +8,11 @@
   per-sequence lengths. A linear cache (no ``kv_positions``, no soft-cap)
   goes to the decode kernel; a ring cache (``kv_positions``) takes the
   eager path.
-- ``cache_write`` / ``ring_positions`` — the cache bookkeeping.
+- ``paged_decode_attention`` — the same against a paged KV pool reached
+  through a block table; goes to the paged decode kernel unless a soft-cap
+  is set.
+- ``cache_write`` / ``paged_cache_write`` / ``ring_positions`` — the cache
+  bookkeeping.
 
 The kernel dispatch rule is the JAX package's (``attention.py:60-61,
 128-129``); the kernels' own modules decide kernel or plain version by the
@@ -102,6 +106,27 @@ def decode_attention(q, k_cache, v_cache, *, lengths, kv_positions=None,
     return o.reshape(B, H, hd).to(q.dtype)
 
 
+def paged_decode_attention(q, k_pool, v_pool, block_table, lengths, *,
+                           logit_cap: Optional[float] = None):
+    """One-token attention against a paged (block-table) cache.
+
+    q [B, H, hd]; k_pool, v_pool [N, P, KV, hd] — N pages of P tokens;
+    block_table [B, nb] maps each sequence's page index to a pool page
+    (entries >= N mark unallocated pages, whose positions are always at or
+    past the sequence length); lengths [B]. Returns [B, H, hd]. Without a
+    soft-cap the pages go to the kernel as they lie; with one, they are
+    gathered into a contiguous view for the eager path."""
+    if logit_cap is None:
+        return _kops.paged_decode_attention(q, k_pool, v_pool, block_table,
+                                            lengths)
+    N, P, KV, hd = k_pool.shape
+    B, nb = block_table.shape
+    bt = block_table.long().clamp(0, N - 1)
+    kc = k_pool[bt].reshape(B, nb * P, KV, hd)
+    vc = v_pool[bt].reshape(B, nb * P, KV, hd)
+    return decode_attention(q, kc, vc, lengths=lengths, logit_cap=logit_cap)
+
+
 def cache_write(k_cache, v_cache, k_new, v_new, lengths, *,
                 ring: bool = False):
     """Write one token per sequence at its current length, IN PLACE (the
@@ -127,6 +152,36 @@ def cache_write(k_cache, v_cache, k_new, v_new, lengths, *,
     v_cache[b, idx] = torch.where(keep, v_cache[b, idx],
                                   v_new.to(v_cache.dtype))
     return k_cache, v_cache
+
+
+def paged_cache_write(k_pool, v_pool, k_new, v_new, block_table, lengths):
+    """Write one token per sequence into its block-table page, IN PLACE.
+
+    k_pool, v_pool [N + 1, P, KV, hd]: the N pages of the pool and, last,
+    a trash page that nothing reads. k_new/v_new [B, KV, hd]; the write
+    of sequence b lands in page ``block_table[b, lengths[b] // P]`` at
+    offset ``lengths[b] % P``. A write past the table (a slot at
+    ``max_seq``) or through a sentinel entry (outside [0, N)) goes to the
+    trash page: the JAX package drops such scatters (``mode="drop"``),
+    which PyTorch has no form of, and filtering the indices on the host
+    would sync. Returns (k_pool, v_pool).
+
+    Shared or prefix-cached pages are never written: the engine keeps
+    every write at or past each slot's length and copy-on-writes the one
+    replay write that could land in one (see the JAX package's
+    ``attention.py:212-241``)."""
+    N = k_pool.shape[0] - 1
+    P = k_pool.shape[1]
+    nb = block_table.shape[1]
+    lengths = lengths.long()
+    pi = torch.div(lengths, P, rounding_mode="floor")
+    off = lengths - pi * P
+    blk = torch.gather(block_table.long(), 1,
+                       pi.clamp(max=nb - 1)[:, None])[:, 0]
+    blk = torch.where((pi < nb) & (blk >= 0) & (blk < N), blk, N)
+    k_pool[blk, off] = k_new.to(k_pool.dtype)
+    v_pool[blk, off] = v_new.to(v_pool.dtype)
+    return k_pool, v_pool
 
 
 def ring_positions(lengths, window: int):

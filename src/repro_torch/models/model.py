@@ -8,7 +8,7 @@ parameter dict and tensors:
 - ``loss(params, batch) -> (scalar, metrics)``
 - ``prefill(params, batch, cache_len=None) -> (last_logits, cache)``
 - ``decode_step(params, cache, tokens, active=None) -> (logits, cache)``
-- ``init_cache(batch, seq_len, device) -> cache``
+- ``init_cache(batch, seq_len, device, paged=None) -> cache``
 
 The default types are the JAX package's: f32 parameters, a bf16 cache.
 ``init`` and ``init_cache`` default to ``device="cuda"`` and raise
@@ -74,8 +74,8 @@ def build_model(cfg: ModelConfig, param_dtype=F32,
         return transformer.decode_step(params, cache, tokens, cfg,
                                        active=active)
 
-    def init_cache(batch_size, seq_len, device="cuda"):
+    def init_cache(batch_size, seq_len, device="cuda", paged=None):
         return transformer.init_cache(cfg, batch_size, seq_len, cache_dtype,
-                                      device=device)
+                                      device=device, paged=paged)
 
     return Model(cfg, init, forward, loss, prefill, decode_step, init_cache)

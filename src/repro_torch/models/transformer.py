@@ -11,22 +11,26 @@ Python loop over layers.
 - ``decode_step``  one token per sequence against the cache
 
 Caches are ``{"lengths" [B] int32, "k"/"v" [L, B, S, KV, hd]}``: linear,
-or a ring buffer when the cache is exactly ``sliding_window`` long.
-``decode_step`` updates the cache IN PLACE (where JAX donates it) and
-returns the same dict.
+or a ring buffer when the cache is exactly ``sliding_window`` long; or
+paged, ``{"lengths", "k_pool"/"v_pool" [L, N + 1, P, KV, hd],
+"block_table" [B, S / P]}``: a pool of N pages of P tokens shared by the
+slots through their block-table rows, plus one trash page (index N) that
+takes the writes the JAX package drops. ``decode_step`` updates the cache
+IN PLACE (where JAX donates it) and returns the same dict.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import (
-    blockwise_attention, cache_write, decode_attention, ring_positions,
+    blockwise_attention, cache_write, decode_attention,
+    paged_cache_write, paged_decode_attention, ring_positions,
 )
 from repro_torch.models.layers import (
     apply_rope, attn_init, dense_init, embed_init, mlp_apply, mlp_init,
@@ -141,12 +145,36 @@ def attn_cache_len(cfg: ModelConfig, seq_len: int) -> int:
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
-               dtype=torch.bfloat16, *, device="cuda"):
+               dtype=torch.bfloat16, *, device="cuda",
+               paged: Optional[Tuple[int, int]] = None):
     """Decode cache sized for ``seq_len`` context (linear layout; a
     sliding window shorter than ``seq_len`` makes it a ring of the
-    window's length)."""
+    window's length).
+
+    ``paged=(num_blocks, page_size)`` selects the paged layout: a pool of
+    ``num_blocks`` pages (plus the trash page) addressed through a
+    ``block_table`` whose entries start at the sentinel ``num_blocks``.
+    Only a linear cache pages (``transformer.py:317-345`` of the JAX
+    package)."""
     _check_dense(cfg)
     device = resolve_device(device)
+    if paged is not None:
+        if cfg.sliding_window is not None and cfg.sliding_window < seq_len:
+            raise ValueError(
+                "paged KV cache requires a linear attention cache "
+                f"(sliding_window {cfg.sliding_window} < {seq_len})")
+        num_blocks, page = paged
+        if seq_len % page:
+            raise ValueError(f"page_size {page} must divide seq_len {seq_len}")
+        shape = (cfg.num_layers, num_blocks + 1, page, cfg.num_kv_heads,
+                 cfg.head_dim)
+        return {
+            "lengths": torch.zeros((batch,), dtype=torch.int32, device=device),
+            "k_pool": torch.zeros(shape, dtype=dtype, device=device),
+            "v_pool": torch.zeros(shape, dtype=dtype, device=device),
+            "block_table": torch.full((batch, seq_len // page), num_blocks,
+                                      dtype=torch.int32, device=device),
+        }
     S = attn_cache_len(cfg, seq_len)
     shape = (cfg.num_layers, batch, S, cfg.num_kv_heads, cfg.head_dim)
     return {
@@ -229,6 +257,22 @@ def _attn_decode(lp, x_t, k_cache, v_cache, lengths, cfg, *, ring_window):
     return x_t + project_out(lp["attn"], o[:, None])[:, 0]
 
 
+def _paged_attn_decode(lp, x_t, k_pool, v_pool, block_table, lengths, cfg):
+    """x_t [B, d]; k/v_pool [N + 1, P, KV, hd] (this layer's pages and the
+    trash page, updated in place); block_table [B, nb]."""
+    h = rms_norm(x_t[:, None], lp["ln1"], cfg.norm_eps)
+    q, k, v = project_qkv(lp["attn"], h, qk_norm=cfg.qk_norm,
+                          norm_eps=cfg.norm_eps)
+    pos = lengths[:, None]
+    q = apply_rope(q, pos, cfg.rope_theta)
+    k = apply_rope(k, pos, cfg.rope_theta)
+    paged_cache_write(k_pool, v_pool, k[:, 0], v[:, 0], block_table, lengths)
+    N = k_pool.shape[0] - 1
+    o = paged_decode_attention(q[:, 0], k_pool[:N], v_pool[:N], block_table,
+                               lengths + 1, logit_cap=cfg.attn_logit_softcap)
+    return x_t + project_out(lp["attn"], o[:, None])[:, 0]
+
+
 def _mlp_decode(lp, x_t, cfg):
     h = rms_norm(x_t[:, None], lp["ln2"], cfg.norm_eps)
     return x_t + mlp_apply(lp["mlp"], h)[:, 0]
@@ -244,6 +288,17 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, *, active=None):
     _check_dense(cfg)
     lengths = cache["lengths"]
     x = _embed_tokens(params, cfg, tokens[:, None])[:, 0]
+    adv = 1 if active is None else active.to(torch.int32)
+    if "k_pool" in cache:
+        # paged layout; the block table and lengths hold for the whole step
+        table = cache["block_table"]
+        for i in range(cfg.num_layers):
+            lp = layer_params(params, i)
+            x = _paged_attn_decode(lp, x, cache["k_pool"][i],
+                                   cache["v_pool"][i], table, lengths, cfg)
+            x = _mlp_decode(lp, x, cfg)
+        cache["lengths"] = lengths + adv
+        return _lm_logits(params, cfg, x), cache
     S = cache["k"].shape[2]
     ring_window = cfg.sliding_window if (
         cfg.sliding_window is not None and S == cfg.sliding_window) else None
@@ -252,6 +307,5 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, *, active=None):
         x = _attn_decode(lp, x, cache["k"][i], cache["v"][i], lengths, cfg,
                          ring_window=ring_window)
         x = _mlp_decode(lp, x, cfg)
-    adv = 1 if active is None else active.to(torch.int32)
     cache["lengths"] = lengths + adv
     return _lm_logits(params, cfg, x), cache

@@ -16,8 +16,17 @@ lengths.
 Sampling noise comes from a ``torch.Generator`` on the engine's device,
 seeded from ``seed`` (the JAX scheduler splits a ``jax.random`` key).
 
-Not ported yet: QoS admission (``admission=`` raises), tracing, fault
-injection and the paged-pool admission gates.
+Admission is block-gated on paged engines: the FIFO head is placed only
+when the shared KV page pool can hold its prefill (``engine.can_admit``,
+which on a prefix-cached engine charges only the pages the cache cannot
+seat), and holds its place in line otherwise. Before each chunk the
+scheduler secures a page per upcoming KV write (``ensure_capacity``); a
+slot that cannot take one more write retires with ``KV_POOL_EXHAUSTED``
+instead of stalling the co-batch, and a prompt that needs more pages than
+the pool holds retires without touching a slot.
+
+Not ported yet: QoS admission (``admission=`` raises), tracing and fault
+injection.
 
 Thread-safety: ``submit`` is lock-free (the FIFO deque's append is atomic)
 so request threads never queue behind a decode chunk; ``tick``, ``poll``
@@ -75,6 +84,7 @@ class SchedulerStats:
     completed: int = 0
     cancelled: int = 0
     cache_overflows: int = 0          # retired with MAX_SEQ_EXCEEDED
+    pool_exhausted: int = 0           # retired with KV_POOL_EXHAUSTED
     rejected: int = 0                 # retired with PROMPT_TOO_LONG
     engine_faults: int = 0            # retired with ENGINE_FAULT
     wall_s: float = 0.0               # accrued per tick
@@ -167,7 +177,9 @@ class ContinuousBatchingScheduler:
             self._completed.pop(next(iter(self._completed)))
 
     def _release(self, req: Request):
-        self.engine.release_slot(req.slot)
+        # tokens as fed (prompt + generated) let a prefix-cached engine
+        # register the slot's fully written pages before they free
+        self.engine.release_slot(req.slot, tokens=req.prompt + req.output)
         del self.active[req.slot]
         self._retire(req)
 
@@ -185,6 +197,40 @@ class ContinuousBatchingScheduler:
         req.error_code = "PROMPT_TOO_LONG"
         self._retire(req)
         self.stats.rejected += 1
+
+    def _pool_exhausted(self, req: Request):
+        """The shared KV pool cannot give the slot its next page: retire
+        cleanly (partial output stays on the request) rather than stall
+        the co-batch behind an unpageable slot."""
+        req.error = (f"KV pool exhausted after {len(req.output)} generated "
+                     f"tokens (requested {req.max_new_tokens}; pool = "
+                     f"{self.engine.kv_pool_blocks} pages of "
+                     f"{self.engine.page_size} tokens)")
+        req.error_code = "KV_POOL_EXHAUSTED"
+        self._release(req)
+        self.stats.completed += 1
+        self.stats.pool_exhausted += 1
+
+    def _never_admissible(self, req: Request) -> bool:
+        """True for requests no amount of waiting can place: no generation
+        headroom, or more prefill pages than the whole pool holds."""
+        if not self.engine.fits_prompt(len(req.prompt)):
+            return True
+        return (self.engine.paged
+                and self.engine.blocks_for_prompt(len(req.prompt))
+                > self.engine.kv_pool_blocks)
+
+    def _retire_inadmissible(self, req: Request):
+        if not self.engine.fits_prompt(len(req.prompt)):
+            self._too_long(req)
+            return
+        req.error = (f"prompt of {len(req.prompt)} tokens needs more "
+                     f"KV pool pages than the pool holds "
+                     f"({self.engine.kv_pool_blocks} pages of "
+                     f"{self.engine.page_size} tokens)")
+        req.error_code = "KV_POOL_EXHAUSTED"
+        self._retire(req)
+        self.stats.pool_exhausted += 1
 
     def _overflow(self, req: Request):
         """Cache full before the request finished: retire cleanly (the
@@ -224,7 +270,8 @@ class ContinuousBatchingScheduler:
         """Honour cancellation marks before admission, so a slot freed by a
         running cancel backfills this very tick."""
         for req in [r for r in self.active.values() if r.cancelled]:
-            self.engine.release_slot(req.slot)
+            self.engine.release_slot(req.slot,
+                                     tokens=req.prompt + req.output)
             del self.active[req.slot]
             self._cancel_retire(req)
         for req in [r for r in list(self.queue) if r.cancelled]:
@@ -256,18 +303,47 @@ class ContinuousBatchingScheduler:
         return True
 
     def _admit(self):
+        """Admission is gated on free slots and, on paged engines, on
+        claimable pool pages: a prompt whose pages cannot be had holds the
+        head of the line (FIFO: no starvation) until pages free."""
         free = self.engine.free_slots()
         while free and self.queue:
-            req = self.queue.popleft()            # FIFO: no starvation
+            req = self.queue[0]
             if req.cancelled:
+                self.queue.popleft()
                 self._cancel_retire(req)
                 continue
-            if not self.engine.fits_prompt(len(req.prompt)):
-                self._too_long(req)
+            if self._never_admissible(req):
+                self.queue.popleft()
+                self._retire_inadmissible(req)
                 continue
+            # the token list: a prefix-cached engine charges only the pages
+            # its cache cannot seat
+            if not self.engine.can_admit(req.prompt):
+                break
+            self.queue.popleft()
             slot = free.pop(0)
             if not self._place(req, slot):
                 free.insert(0, slot)
+
+    def _secure_pages(self, budgets: np.ndarray):
+        """Paged engines: secure a pool page for every KV write of the
+        coming chunk before it is dispatched. A slot that cannot take one
+        more write retires now (its pages may unblock the slots after
+        it); a partly secured slot decodes up to its headroom."""
+        for slot, req in list(self.active.items()):
+            if budgets[slot] <= 0:
+                continue
+            got = self.engine.ensure_capacity(
+                slot, min(self.decode_chunk, int(budgets[slot])))
+            if got == 0:
+                if self.engine.context_len(slot) >= self.engine.max_seq:
+                    self._overflow(req)
+                else:
+                    self._pool_exhausted(req)
+                budgets[slot] = 0
+                continue
+            budgets[slot] = min(int(budgets[slot]), got)
 
     def _read(self, toks, emitted) -> Tuple[List[int], Optional[np.ndarray],
                                             Optional[np.ndarray]]:
@@ -300,6 +376,9 @@ class ContinuousBatchingScheduler:
                 for slot, req in self.active.items():
                     have = len(req.output) + (1 if id(req) in pending else 0)
                     budgets[slot] = max(0, req.max_new_tokens - have)
+                if self.engine.paged:
+                    self._secure_pages(budgets)
+            if self.active:
                 # budget-aligned pow2 chunk: never decode past the earliest
                 # completion
                 k = min(self.decode_chunk,

@@ -3,9 +3,7 @@
 - nothing under ``src/repro_torch/`` or in ``chip_smoke.py`` imports JAX or
   the JAX package (``repro``), and importing the port loads neither;
 - entry points default to ``device="cuda"`` and raise without a GPU
-  (no silent CPU fallback);
-- the parts of the JAX engine this slice does not port raise instead of
-  falling back (``paged=True``, ``prefix_cache=True``);
+  (no silent CPU fallback), the HTTP front's build path included;
 - each kernel's CUDA source names the TPU kernel it replaces, and the
   kernel modules call no library attention.
 """
@@ -51,7 +49,8 @@ def test_no_jax_or_jax_package_imports(path):
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys; import repro_torch.core.service, "
-            "repro_torch.core.assets, repro_torch.models.convert; "
+            "repro_torch.core.assets, repro_torch.models.convert, "
+            "repro_torch.core.api, repro_torch.launch.serve; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -63,6 +62,7 @@ def _device_entry_points():
     from repro_torch.configs import get_config
     from repro_torch.configs.base import reduce_for_smoke
     from repro_torch.core.assets import _EngineWrapper
+    from repro_torch.core.deployment import DeploymentManager
     from repro_torch.device import resolve_device
     from repro_torch.models import convert, transformer
     from repro_torch.models.model import build_model
@@ -71,7 +71,7 @@ def _device_entry_points():
     return (resolve_device, GenerationEngine.__init__,
             _EngineWrapper.__init__, transformer.init_params,
             transformer.init_cache, convert.to_torch_params, model.init,
-            model.init_cache)
+            model.init_cache, DeploymentManager.deploy)
 
 
 def test_entry_points_default_to_cuda():
@@ -94,10 +94,18 @@ def test_default_device_raises_without_cuda():
     from repro_torch.models.convert import to_torch_params
     from repro_torch.models.model import build_model
     model = build_model(reduce_for_smoke(get_config("qwen3-4b")))
+    from repro_torch.core.api import MAXServer
+    server = MAXServer(build_kw={"max_seq": 32})
     for call in (model.init, lambda: model.init_cache(1, 8),
-                 lambda: to_torch_params({"embed": [[0.0]]})):
+                 lambda: model.init_cache(1, 32, paged=(4, 16)),
+                 lambda: to_torch_params({"embed": [[0.0]]}),
+                 lambda: server.manager.deploy("qwen3-4b",
+                                               **server.build_kw),
+                 lambda: EXCHANGE.get("qwen3-4b").build(paged=True,
+                                                        prefix_cache=True)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
+    server.stop()
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -112,20 +120,20 @@ def test_build_rejects_params_of_another_shape():
                                        params=params)
 
 
-@pytest.mark.parametrize("kw", [{"paged": True}, {"prefix_cache": True}])
-def test_unported_engine_options_raise(kw):
-    from repro_torch.core.assets import EXCHANGE
-    with pytest.raises(NotImplementedError, match="next slice"):
-        EXCHANGE.get("qwen3-4b").build(device="cpu", max_seq=32, **kw)
-
-
 def test_kernel_sources_name_their_tpu_kernel_and_use_no_library():
     from repro_torch.kernels import build
     for name in build.SOURCES:
         src = (PORT / "kernels" / "csrc" / f"{name}.cu").read_text()
         assert f"repro/kernels/{name}.py::{name}" in src
+        for entry in build.ENTRY_POINTS[name]:
+            assert f'extern "C" int {entry}(' in src
+            kernel = entry[:-len("_fwd")]
+            assert f"repro/kernels/{name}.py::{kernel}" in src
         assert "sm_90a" in src
         assert 'extern "C"' in src
         mod = (PORT / "kernels" / f"{name}.py").read_text()
         assert "scaled_dot_product_attention" not in mod
         assert "_plain" in mod and ".launches += 1" in mod
+    mod = (PORT / "kernels" / "decode_attention.py").read_text()
+    assert "paged_decode_attention.launches += 1" in mod
+    assert "def paged_decode_attention_plain" in mod
