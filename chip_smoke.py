@@ -8,7 +8,9 @@ Phases, in order; any failure exits non-zero:
    per source, started together) and print the card's name and power
    limit;
 2. hold each kernel against its plain PyTorch version on the card, at the
-   main path's full-width shapes and at small ones;
+   main path's full-width shapes and at small ones (2b: the recurrent
+   kernels and flash at head_dim 256, at the hybrid's and the SSM's
+   full-width prefill shapes);
 3. drive the contiguous path: full-width ``qwen3-4b`` (random weights from
    a seed) built through the exchange on ``cuda`` and served by
    ``BatchedService`` to concurrent greedy requests and one sampled one;
@@ -22,10 +24,18 @@ Phases, in order; any failure exits non-zero:
    warm replay (tokens equal its first run); check the paged kernel ran on
    every decode and fill step, the linear one never, and that no pool page
    leaks;
-5. print ``{"kernels": [...]}`` with each kernel's launches on its path,
+5. and 6. the recurrent families, one on the card at a time: deploy
+   full-width ``recurrentgemma-9b`` (hybrid), then ``rwkv6-7b`` (SSM), over
+   HTTP at ``max_batch`` 4 and ``max_seq`` 4096; serve four greedy v2
+   predicts (5-1501 tokens) and one v1 predict sampled at 0.8 at once;
+   check the launches (per prefill: 26 ``rglru_scan`` + 12 flash, or 32
+   ``wkv_scan``; none in decode), co-batched == alone, every greedy token
+   against the scoring forward's argmax, and the reduced model GPU == CPU;
+   profile a decode step; print the peak memory; undeploy;
+7. print ``{"kernels": [...]}`` with each kernel's launches on its path,
    its error against the plain version, and its time, the plain version's
    time, the bound and a library call's time, all measured here;
-6. print ``{"ok": true, "device": {...}}`` as the last line.
+8. print ``{"ok": true, "device": {...}}`` as the last line.
 
 It imports nothing of JAX and nothing of the JAX package. Without a GPU,
 or without the repository beside it, it exits non-zero and prints no
@@ -102,6 +112,15 @@ def check_close(name: str, got, want, dtype_name: str) -> float:
     if not ok:
         fail(f"{name} disagrees with its plain version")
     return err
+
+
+def bound_ms(nbytes, flops):
+    """(bound ms, "bytes" | "operations"): the least time on the H100's
+    published peaks (memory rate, f32 rate) for the bytes and operations
+    a call needs."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_FLOPS["float32"]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
+                                       else "operations")
 
 
 def flash_flops(B, H, Sq, hd, kv_len, q_offset, causal, window):
@@ -197,9 +216,7 @@ def phase_kernels(cfg):
     q, k, v = randn(1, H, Sq, hd), randn(1, KV, Sq, hd), randn(1, KV, Sq, hd)
     flops = flash_flops(1, H, Sq, hd, Sq, 0, True, window)
     nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
-    bound = max(nbytes / PEAK_BYTES_S, flops / PEAK_FLOPS["float32"]) * 1e3
-    bound_by = ("bytes" if nbytes / PEAK_BYTES_S > flops / PEAK_FLOPS["float32"]
-                else "operations")
+    bound, bound_by = bound_ms(nbytes, flops)
     ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True, window=window))
     plain_ms = cuda_ms(lambda: flash_attention_plain(
         q, k, v, causal=True, window=window), iters=5)
@@ -211,6 +228,7 @@ def phase_kernels(cfg):
     out["flash_attention"] = dict(
         max_abs_err=flash_err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
         bound_by=bound_by, library_ms=lib_ms,
+        library="torch.nn.functional.scaled_dot_product_attention",
         shape=f"q [1,{H},{Sq},{hd}] f32, k/v [1,{KV},{Sq},{hd}], causal, "
               f"window {window}")
 
@@ -277,9 +295,7 @@ def phase_kernels(cfg):
     ctx = int(lengths.sum())
     nbytes = (4 * q.numel() * 2 + 2 * 2 * ctx * KV * hd + 4 * B)
     flops = 4 * ctx * H * hd
-    bound = max(nbytes / PEAK_BYTES_S, flops / PEAK_FLOPS["float32"]) * 1e3
-    bound_by = ("bytes" if nbytes / PEAK_BYTES_S > flops / PEAK_FLOPS["float32"]
-                else "operations")
+    bound, bound_by = bound_ms(nbytes, flops)
     ms = cuda_ms(lambda: decode_attention(q, k, v, lengths), iters=50)
     plain_ms = cuda_ms(lambda: decode_attention_plain(q, k, v, lengths))
     # one library call needs one dtype: SDPA on f32 copies of the cache
@@ -296,6 +312,7 @@ def phase_kernels(cfg):
     out["decode_attention"] = dict(
         max_abs_err=decode_err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
         bound_by=bound_by, library_ms=lib_ms,
+        library="scaled_dot_product_attention on an f32 copy of the cache",
         shape=f"q [{B},{H},{hd}] f32, k/v [{B},{S},{KV},{hd}] bf16, "
               f"lengths {S} each")
     out["paged_decode_attention"] = check_paged(cfg, randn)
@@ -410,9 +427,7 @@ def check_paged(cfg, randn):
     nbytes = (4 * q.numel() * 2 + 2 * 2 * ctx * KV * hd
               + 4 * table.numel() + 4 * B)
     flops = 4 * ctx * H * hd
-    bound = max(nbytes / PEAK_BYTES_S, flops / PEAK_FLOPS["float32"]) * 1e3
-    bound_by = ("bytes" if nbytes / PEAK_BYTES_S > flops / PEAK_FLOPS["float32"]
-                else "operations")
+    bound, bound_by = bound_ms(nbytes, flops)
     ms = cuda_ms(lambda: paged_decode_attention(q, kp, vp, table, lengths),
                  iters=50)
     plain_ms = cuda_ms(lambda: paged_decode_attention_plain(
@@ -438,8 +453,193 @@ def check_paged(cfg, randn):
         f"{nbytes / 1e6:.1f} MB)")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by=bound_by, library_ms=lib_ms,
+                library="k_pool[block_table] gather + "
+                        "scaled_dot_product_attention",
                 shape=f"q [{B},{H},{hd}] f32, pools [{N},{P},{KV},{hd}] bf16, "
                       f"shuffled table [{B},{nb}], lengths 2048 each")
+
+
+def check_scaled(name, got, want, rel):
+    """Max abs error against the plain version, held to ``rel`` times the
+    plain output's largest magnitude (a recurrence accumulates rounding
+    over its steps, so the error scales with the values)."""
+    import torch
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    ok = bool(torch.isfinite(got).all()) and err <= rel * scale
+    log(f"  {name}: max_abs_err {err:.3e} (tolerance {rel:g} x max|plain| "
+        f"= {rel * scale:.3e}) {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail(f"{name} disagrees with its plain version")
+    return err
+
+
+def phase_recurrent_kernels():
+    """The hybrid's and the SSM's kernels against their plain versions at
+    the shapes their full-width prefills give them (a 2048-token bucket:
+    W = lru_width 4096; 64 heads of 64; 16 query heads on one KV head at
+    hd 256 with the 2048-token local window), a ragged length, and B = 4;
+    then each timed with a cold L2."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_plain)
+    from repro_torch.kernels.rglru import rglru_scan, rglru_scan_plain
+    from repro_torch.kernels.rwkv6 import wkv_scan, wkv_scan_plain
+
+    log("== phase 2b: recurrent kernels and flash at hd 256 vs plain "
+        "versions")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, device=dev, generator=gen) * scale
+
+    def uniform(*shape, lo, hi):
+        return lo + (hi - lo) * torch.rand(*shape, device=dev, generator=gen)
+
+    out = {}
+    # -- rglru_scan: one recurrence, f32 — the kernel's tolerance
+    W = 4096
+    rg_err = 0.0
+    for B, S in ((1, 2048), (1, 1501), (4, 2048), (3, 5)):
+        a = uniform(B, S, W, lo=0.5, hi=0.999)
+        b = randn(B, S, W, scale=0.1)
+        h0 = randn(B, W, scale=0.1)
+        h, last = ops.rglru_scan(a, b, h0)
+        ph, plast = rglru_scan_plain(a, b, h0)
+        rg_err = max(rg_err, check_close(
+            f"rglru_scan B={B} S={S} W={W} h0 != 0", h, ph, "float32"),
+            check_close(f"rglru_scan h_last B={B} S={S}", last, plast,
+                        "float32"))
+    h, last = rglru_scan(a, b)                      # h0 = None: zeros
+    check_close("rglru_scan h0 None", h, rglru_scan_plain(a, b)[0],
+                "float32")
+    B, S = 1, 2048
+    a = uniform(B, S, W, lo=0.5, hi=0.999)
+    b = randn(B, S, W, scale=0.1)
+    h0 = randn(B, W, scale=0.1)
+    bound, bound_by = bound_ms(4 * (3 * B * S * W + 2 * B * W), 2 * B * S * W)
+    ms = cuda_ms(lambda: rglru_scan(a, b, h0))
+    plain_ms = cuda_ms(lambda: rglru_scan_plain(a, b, h0), iters=3)
+    log(f"  rglru_scan [{B},{S},{W}] f32: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {bound:.4f} ms ({bound_by}); no single "
+        "PyTorch call computes the recurrence")
+    out["rglru_scan"] = dict(
+        max_abs_err=rg_err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+        bound_by=bound_by, library_ms=None,
+        library="none: no single PyTorch call computes the recurrence",
+        shape=f"a/b [{B},{S},{W}] f32, h0 [{B},{W}]")
+
+    # -- wkv_scan: 2,048 steps of state accumulation, compared relative to
+    #    the output's scale: f32 rounding (2^-24) over the steps and the
+    #    64-term sums stays far below 1e-4 of the largest value
+    H, N, rel = 64, 64, 1e-4
+    wkv_err = 0.0
+    for B, T in ((1, 2048), (1, 1501), (2, 33)):
+        r, k, v = randn(B, T, H, N), randn(B, T, H, N, scale=0.2), \
+            randn(B, T, H, N)
+        w = uniform(B, T, H, N, lo=0.9, hi=0.999)
+        u = randn(H, N)
+        s0 = randn(B, H, N, N, scale=0.1)
+        y, s = ops.wkv_scan(r, k, v, w, u, s0)
+        py, ps = wkv_scan_plain(r, k, v, w, u, s0)
+        wkv_err = max(wkv_err, check_scaled(
+            f"wkv_scan y B={B} T={T} H={H} N={N} s0 != 0", y, py, rel),
+            check_scaled(f"wkv_scan s_final B={B} T={T}", s, ps, rel))
+    y, s = wkv_scan(r, k, v, w, u)                  # s0 = None: zeros
+    check_scaled("wkv_scan s0 None", y, wkv_scan_plain(r, k, v, w, u)[0], rel)
+    B, T = 1, 2048
+    r, k, v = randn(B, T, H, N), randn(B, T, H, N, scale=0.2), \
+        randn(B, T, H, N)
+    w = uniform(B, T, H, N, lo=0.9, hi=0.999)
+    u, s0 = randn(H, N), randn(B, H, N, N, scale=0.1)
+    # bytes: r, k, v, w, y, u and both states; operations: y_j =
+    # sum_i r_i S_ij (2 N^2) plus v_j (r.u.k) (O(N)), S_ij = w_i S_ij +
+    # k_i v_j (3 N^2), per step and head
+    bound, bound_by = bound_ms(4 * (5 * B * T * H * N + H * N + 2 * B * H * N * N),
+                             5 * N * N * B * T * H)
+    ms = cuda_ms(lambda: wkv_scan(r, k, v, w, u, s0))
+    plain_ms = cuda_ms(lambda: wkv_scan_plain(r, k, v, w, u, s0), iters=3)
+    log(f"  wkv_scan [{B},{T},{H},{N}] f32: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {bound:.4f} ms ({bound_by}); no single "
+        "PyTorch call computes the recurrence")
+    out["wkv_scan"] = dict(
+        max_abs_err=wkv_err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+        bound_by=bound_by, library_ms=None,
+        library="none: no single PyTorch call computes the recurrence",
+        shape=f"r/k/v/w [{B},{T},{H},{N}] f32, u [{H},{N}], s0 "
+              f"[{B},{H},{N},{N}]")
+
+    # -- flash at hd 256: MQA (16 query heads, one KV head), causal, the
+    #    2048-token local window (= causal at S <= 2048) and a 512 window
+    Hq, KV, hd = 16, 1, 256
+    fl_err = 0.0
+    for S, window in ((2048, 2048), (2048, 512), (1501, 2048), (16, 2048)):
+        q, k, v = randn(1, Hq, S, hd), randn(1, KV, S, hd), randn(1, KV, S, hd)
+        got = ops.flash_attention(q, k, v, causal=True, window=window)
+        want = flash_attention_plain(q, k, v, causal=True, window=window)
+        fl_err = max(fl_err, check_close(
+            f"flash hd=256 H={Hq} KV={KV} S={S} window={window} f32", got,
+            want, "float32"))
+    q, k, v = (randn(2, 4, 128, hd).to(torch.bfloat16),
+               randn(2, 2, 128, hd).to(torch.bfloat16),
+               randn(2, 2, 128, hd).to(torch.bfloat16))
+    check_close("flash hd=256 B=2 H=4 KV=2 S=128 bf16 window 40",
+                flash_attention(q, k, v, causal=True, window=40),
+                flash_attention_plain(q, k, v, causal=True, window=40),
+                "bfloat16")
+
+    # refusals before any launch
+    n0 = (rglru_scan.launches, wkv_scan.launches)
+    x = randn(1, 4, 2, 64)
+    for what, bad in (
+            ("rglru bf16", lambda: rglru_scan(a.bfloat16(), b.bfloat16())),
+            ("rglru h0 shape", lambda: rglru_scan(a, b, h0[:, :8])),
+            ("wkv N=32", lambda: wkv_scan(*(randn(1, 4, 2, 32),) * 4,
+                                          randn(2, 32))),
+            ("wkv N=128", lambda: wkv_scan(*(randn(1, 4, 2, 128),) * 4,
+                                           randn(2, 128))),
+            ("wkv non-contiguous", lambda: wkv_scan(
+                x, x, x, x.transpose(1, 2), randn(2, 64))),
+            ("wkv u on the CPU", lambda: wkv_scan(x, x, x, x,
+                                                  torch.zeros(2, 64))),
+            ("wkv misaligned", lambda: wkv_scan(
+                *(randn(4 * 2 * 64 + 1)[1:].view(1, 4, 2, 64),) * 4,
+                randn(2, 64)))):
+        try:
+            bad()
+        except ValueError:
+            continue
+        fail(f"the wrapper took an input its kernel does not: {what}")
+    if (rglru_scan.launches, wkv_scan.launches) != n0:
+        fail("a refused input was counted as a launch")
+    log("  recurrent wrappers refuse wrong dtypes, shapes, layouts and "
+        "devices with ValueError: ok")
+
+    S, window = 2048, 2048
+    q, k, v = randn(1, Hq, S, hd), randn(1, KV, S, hd), randn(1, KV, S, hd)
+    flops = flash_flops(1, Hq, S, hd, S, 0, True, window)
+    bound, bound_by = bound_ms(4 * (2 * q.numel() + k.numel() + v.numel()),
+                             flops)
+    ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True,
+                                         window=window))
+    plain_ms = cuda_ms(lambda: flash_attention_plain(
+        q, k, v, causal=True, window=window), iters=5)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True))
+    log(f"  flash hd=256 q [1,{Hq},{S},{hd}] k/v [1,{KV},{S},{hd}] f32 "
+        f"causal window {window}: kernel {ms:.3f} ms, plain {plain_ms:.3f} "
+        f"ms, sdpa {lib_ms:.3f} ms, bound {bound:.3f} ms ({bound_by}; "
+        f"{flops / 1e9:.1f} GFLOP)")
+    out["flash_attention_hd256"] = dict(
+        max_abs_err=fl_err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+        bound_by=bound_by, library_ms=lib_ms,
+        library="torch.nn.functional.scaled_dot_product_attention",
+        shape=f"q [1,{Hq},{S},{hd}] f32, k/v [1,{KV},{S},{hd}], causal, "
+              f"window {window}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -452,36 +652,34 @@ def _text(n: int, seed: int) -> str:
     return "".join(chr(c) for c in rng.integers(97, 123, size=n))
 
 
-def check_small_reference():
+def check_small_reference(name, *, max_seq, lengths, new_tokens, tol,
+                          note=""):
     """The reduced model on the GPU (kernels) against the same weights on
     the CPU (the kernels' plain versions): greedy tokens identical and
-    prefill logits close."""
+    the longest prompt's prefill logits within atol = rtol = ``tol``."""
     import torch
     from repro_torch.core.assets import EXCHANGE
 
-    log("  small-input reference: reduced qwen3-4b, GPU kernels vs CPU "
-        "plain versions")
-    # max_seq 48 < the reduced 64-token window: a linear cache, so decode
-    # runs the decode kernel (a cache exactly one window long is a ring)
-    gpu = EXCHANGE.get("qwen3-4b").build(smoke=True, max_seq=48,
-                                         max_batch=3, device="cuda", seed=1)
-    cpu = EXCHANGE.get("qwen3-4b").build(smoke=True, max_seq=48,
-                                         max_batch=3, device="cpu",
-                                         params=_to_numpy(gpu.params))
-    prompts = [[256] + list(range(1, 1 + n)) for n in (3, 17, 24)]
-    got = gpu.engine.generate(prompts, max_new_tokens=16)
-    want = cpu.engine.generate(prompts, max_new_tokens=16)
+    kw = dict(smoke=True, max_seq=max_seq, max_batch=3, seed=1)
+    gpu = EXCHANGE.get(name).build(device="cuda", **kw)
+    cpu = EXCHANGE.get(name).build(device="cpu", params=_to_numpy(gpu.params),
+                                   **kw)
+    prompts = [[256] + list(range(1, 1 + n)) for n in lengths]
+    got = gpu.engine.generate(prompts, max_new_tokens=new_tokens)
+    want = cpu.engine.generate(prompts, max_new_tokens=new_tokens)
     if [r.tokens for r in got] != [r.tokens for r in want]:
-        fail("reduced model: GPU greedy tokens differ from the CPU "
+        fail(f"reduced {name}: GPU greedy tokens differ from the CPU "
              "reference")
-    toks = torch.tensor([prompts[1]])
+    toks = torch.tensor([prompts[-1]])
     lg, _ = gpu.model.prefill(gpu.params, {"tokens": toks.cuda()})
     lc, _ = cpu.model.prefill(cpu.params, {"tokens": toks})
     err = (lg.cpu() - lc).abs().max().item()
-    if not torch.allclose(lg.cpu(), lc, atol=1e-4, rtol=1e-4):
-        fail(f"reduced model: prefill logits differ by {err:.3e}")
-    log(f"    3 prompts x 16 greedy tokens identical; prefill logits "
-        f"max_abs_err {err:.3e} (tolerance atol 1e-4 rtol 1e-4)")
+    if not torch.allclose(lg.cpu(), lc, atol=tol, rtol=tol):
+        fail(f"reduced {name}: prefill logits differ by {err:.3e}")
+    log(f"  reduced {name}, GPU kernels vs CPU plain versions: "
+        f"{len(prompts)} prompts x {new_tokens} greedy tokens identical"
+        f"{note}; prefill logits max_abs_err {err:.3e} (tolerance atol "
+        f"{tol:g} rtol {tol:g})")
 
 
 def _to_numpy(params):
@@ -499,7 +697,10 @@ def phase_main_path(cfg):
     from repro_torch.kernels.flash_attention import flash_attention
 
     log("== phase 3: contiguous path")
-    check_small_reference()
+    # max_seq 48 < the reduced 64-token window: a linear cache, so decode
+    # runs the decode kernel (a cache exactly one window long is a ring)
+    check_small_reference("qwen3-4b", max_seq=48, lengths=(3, 17, 24),
+                          new_tokens=16, tol=1e-4)
 
     t0 = time.perf_counter()
     wrapper = EXCHANGE.get("qwen3-4b").build(
@@ -696,18 +897,20 @@ def http(url, method, path, payload=None, timeout=600):
         return e.code, json.loads(e.read())
 
 
-def concurrent_predicts(url, inputs):
-    """POST every input to /v2/.../predict at once; (envelopes, wall s)."""
-    outs = [None] * len(inputs)
-    gate = threading.Barrier(len(inputs))
+def predict_all(url, name, requests):
+    """POST every (route, input) at once — route "v2" or "v1"; returns
+    (envelopes, wall s)."""
+    paths = {"v2": f"/v2/model/{name}/predict", "v1": f"/model/{name}/predict"}
+    outs = [None] * len(requests)
+    gate = threading.Barrier(len(requests))
 
     def go(i):
+        route, inp = requests[i]
         gate.wait(timeout=60)
-        outs[i] = http(url, "POST", "/v2/model/qwen3-4b/predict",
-                       {"input": inputs[i]})
+        outs[i] = http(url, "POST", paths[route], {"input": inp})
 
     threads = [threading.Thread(target=go, args=(i,))
-               for i in range(len(inputs))]
+               for i in range(len(requests))]
     t0 = time.perf_counter()
     for t in threads:
         t.start()
@@ -716,7 +919,7 @@ def concurrent_predicts(url, inputs):
     wall = time.perf_counter() - t0
     if any(t.is_alive() for t in threads):
         fail("an HTTP request did not return")
-    for inp, out in zip(inputs, outs):
+    for (_, inp), out in zip(requests, outs):
         if out is None or out[0] != 200 or out[1].get("status") != "ok":
             fail(f"HTTP predict failed: {out}")
         n = out[1]["predictions"][0]["generated_tokens"]
@@ -790,7 +993,8 @@ def phase_http(cfg, greedy_inputs, contiguous_outs):
         dep = server.manager.get("qwen3-4b")
         eng = dep.wrapper.engine
         s0, p0 = eng.steps_dispatched, eng.prefills_dispatched
-        outs, wall = concurrent_predicts(server.url, greedy_inputs)
+        outs, wall = predict_all(server.url, "qwen3-4b",
+                                 [("v2", inp) for inp in greedy_inputs])
         steps += eng.steps_dispatched - s0
         prefills += eng.prefills_dispatched - p0
         for got, want in zip(outs, contiguous_outs):
@@ -820,18 +1024,19 @@ def phase_http(cfg, greedy_inputs, contiguous_outs):
         # is the cold one (1,024-token prefill + tail fill)
         cold_in = {"text": _text(1023, 400) + _text(10, 401),
                    "max_new_tokens": 8}
-        _, ttft_cold = ttft_of_next(svc, lambda: concurrent_predicts(
-            server.url, [cold_in]))
+        _, ttft_cold = ttft_of_next(svc, lambda: predict_all(
+            server.url, "qwen3-4b", [("v2", cold_in)]))
         # the token ids each request emitted, as the service hands them to
         # the wrapper's formatter (the envelope carries only their text)
         emitted, fmt = {}, dep.wrapper.format_generation
         dep.wrapper.format_generation = lambda toks, n: (
             emitted.setdefault(n, list(toks)), fmt(toks, n))[1]
-        outs, wall = concurrent_predicts(server.url, inputs)
+        outs, wall = predict_all(server.url, "qwen3-4b",
+                                 [("v2", inp) for inp in inputs])
         del dep.wrapper.format_generation
         hits0 = svc.stats()["prefix_cache"]["hit_tokens"]
-        (replay, _), ttft_warm = ttft_of_next(svc, lambda: concurrent_predicts(
-            server.url, [inputs[0]]))
+        (replay, _), ttft_warm = ttft_of_next(svc, lambda: predict_all(
+            server.url, "qwen3-4b", [("v2", inputs[0])]))
         steps += eng.steps_dispatched - s0
         prefills += eng.prefills_dispatched - p0
         stats = svc.stats()
@@ -890,9 +1095,7 @@ def check_prefix_reference(dep, inputs, emitted):
 
     - Every greedy token the concurrent prefix requests emitted (three of
       them prefix hits, their fills running beside other slots' decode)
-      must be the forward's argmax at its position, up to a margin of
-      0.2 x the std of that position's logits: the paths differ by the
-      bf16 rounding of the cached K/V, so only a near-tie may flip.
+      must be the forward's argmax (:func:`check_against_forward`).
     - A warm admission (64 cached pages by reference, the tail through
       masked paged decode steps) gives first-token logits within
       atol = 0.1 x the std of the forward's logits at the prompt's end.
@@ -901,30 +1104,7 @@ def check_prefix_reference(dep, inputs, emitted):
     import torch
     wrapper, eng = dep.wrapper, dep.wrapper.engine
     V = wrapper.cfg.vocab_size
-    worst = 0.0
-    argmax_equal = total = 0
-    for inp in inputs:
-        prompt = wrapper.prepare_generation(inp)[0]
-        out = emitted.get(len(prompt))
-        if not out:
-            fail(f"no tokens recorded for the {len(prompt)}-token prompt")
-        seq = torch.tensor([prompt + out[:-1]], device="cuda")
-        with torch.no_grad():
-            ref = wrapper.model.forward(wrapper.params, {"tokens": seq})
-        ref = ref[0, len(prompt) - 1:, :V]
-        std = ref.std(dim=-1)
-        tok = torch.tensor(out, device="cuda")
-        gap = (ref.max(dim=-1).values - ref.gather(1, tok[:, None])[:, 0])
-        rel = (gap / std).max().item()
-        worst = max(worst, rel)
-        argmax_equal += int((gap == 0).sum())
-        total += len(out)
-        if rel > 0.2:
-            fail(f"a greedy prefix request emitted a token {rel:.3f} std "
-                 f"below the reference forward's argmax (margin 0.2)")
-    log(f"  prefix vs the scoring forward: {argmax_equal} of {total} greedy "
-        f"tokens are the reference argmax; the largest gap to it is "
-        f"{worst:.4f} std (margin 0.2 std)")
+    check_against_forward(wrapper, inputs, emitted, "prefix")
 
     prompt = wrapper.prepare_generation(inputs[1])[0]
     rows, first_token = [], eng._first_token
@@ -983,6 +1163,226 @@ def sync_free_paged_chunk(eng):
         "ran under torch.cuda.set_sync_debug_mode('error'): no host sync")
 
 
+# ---------------------------------------------------------------------------
+# phases 5-6: the recurrent families over HTTP, one on the card at a time
+# ---------------------------------------------------------------------------
+
+def ring_kernel_counts(cfg):
+    """Launches of each kernel one prefill of ``cfg`` makes: an RG-LRU
+    scan per recurrent layer (pattern blocks and tail) and a flash per
+    local-attention layer for the hybrid; a WKV scan per layer for the
+    SSM. Decode makes none."""
+    if cfg.family == "ssm":
+        return {"wkv_scan": cfg.num_layers}
+    n_attn = cfg.num_pattern_blocks * sum(k == "attn"
+                                          for k in cfg.block_pattern)
+    return {"rglru_scan": cfg.num_layers - n_attn, "flash_attention": n_attn}
+
+
+def check_against_forward(wrapper, inputs, emitted, label):
+    """Every greedy token ``wrapper`` emitted for ``inputs`` (ids in
+    ``emitted``, keyed by prompt length) must be the argmax of the model's
+    scoring forward over the same prompt (left-padded to its bucket, as a
+    ring engine prefills it) plus the tokens before it, up to a margin of
+    0.2 x the std of that position's logits. The forward runs the prefill
+    kernels over the whole sequence on f32 K/V and states; the served
+    tokens came from decode steps (a bf16 cache or ring, the O(1) state
+    updates), so only a near-tie may flip. One request at a time, keeping
+    only the generated positions' logits. Launches made here are outside
+    the main-path counts."""
+    import torch
+    from repro_torch.serving.engine import _bucket
+    V, dev = wrapper.cfg.vocab_size, wrapper.engine.device
+    worst, argmax_equal, total = 0.0, 0, 0
+    for inp in inputs:
+        prompt = wrapper.prepare_generation(inp)[0]
+        out = emitted.get(len(prompt))
+        if not out:
+            fail(f"no tokens recorded for the {len(prompt)}-token prompt")
+        start = _bucket(len(prompt)) if wrapper.engine._ring else len(prompt)
+        seq = [0] * (start - len(prompt)) + prompt + out[:-1]
+        with torch.no_grad():
+            ref = wrapper.model.forward(
+                wrapper.params, {"tokens": torch.tensor([seq], device=dev)})
+            ref = ref[0, start - 1:, :V].clone()
+        if not torch.isfinite(ref).all():
+            fail("the scoring forward gave non-finite logits")
+        tok = torch.tensor(out, device=dev)
+        gap = (ref.max(dim=-1).values - ref.gather(1, tok[:, None])[:, 0])
+        rel = (gap / ref.std(dim=-1)).max().item()
+        worst = max(worst, rel)
+        argmax_equal += int((gap == 0).sum())
+        total += len(out)
+        del ref
+        if rel > 0.2:
+            fail(f"a greedy {label} request emitted a token {rel:.3f} std "
+                 f"below the scoring forward's argmax (margin 0.2)")
+    log(f"  {label} vs the scoring forward: {argmax_equal} of {total} "
+        f"greedy tokens are the forward's argmax; the largest gap to it is "
+        f"{worst:.4f} std (margin 0.2 std)")
+
+
+def check_decode_logits(wrapper, inp, emitted, tol=0.05):
+    """The decode step's logits against the scoring forward's, position
+    by position: the request's left-padded prompt is prefilled at B=1 and
+    its emitted tokens are fed back through ``decode_step`` (the O(1)
+    recurrent updates, the ring attention), and each position's logits
+    must lie within ``tol`` x the std of the forward's (the forward runs
+    the prefill kernels over the whole sequence). This holds the step path
+    to the kernels' path on the logits, where a random model's argmax
+    alone could hide a fault."""
+    import torch
+    from repro_torch.serving.engine import _bucket
+    model, params, eng = wrapper.model, wrapper.params, wrapper.engine
+    V, dev = wrapper.cfg.vocab_size, eng.device
+    prompt = wrapper.prepare_generation(inp)[0]
+    out = emitted[len(prompt)]
+    bucket = _bucket(len(prompt))
+    toks = [0] * (bucket - len(prompt)) + prompt
+    with torch.no_grad():
+        ref = model.forward(params, {"tokens": torch.tensor(
+            [toks + out[:-1]], device=dev)})[0, bucket - 1:, :V].clone()
+        logits, cache = model.prefill(
+            params, {"tokens": torch.tensor([toks], device=dev)},
+            cache_len=eng.max_seq)
+        rows = [logits[0, :V]]
+        for t in out[:-1]:
+            logits, cache = model.decode_step(
+                params, cache, torch.tensor([t], dtype=torch.int32,
+                                            device=dev))
+            rows.append(logits[0, :V])
+    err = ((torch.stack(rows) - ref).abs().max(dim=-1).values
+           / ref.std(dim=-1)).max().item()
+    del ref, cache
+    log(f"  {len(prompt)}-token prompt + {len(out) - 1} decode steps at "
+        f"B=1: logits within {err:.4f} std of the scoring forward's "
+        f"(tolerance {tol} std)")
+    if not err <= tol:
+        fail(f"decode-step logits differ from the forward's by {err:.3f} "
+             f"std (tolerance {tol})")
+
+
+def phase_ring(server, name, number):
+    """Deploy full-width ``name`` over HTTP (max_batch 4, max_seq 4096),
+    serve four greedy v2 predicts of 5-1501 tokens and one v1 predict
+    sampled at 0.8, all at once; check launches, co-batched == alone, the
+    scoring forward's argmax; profile a decode step; undeploy."""
+    import torch
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, paged_decode_attention)
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rglru import rglru_scan
+    from repro_torch.kernels.rwkv6 import wkv_scan
+
+    from repro_torch.configs import get_config
+
+    log(f"== phase {number}: {name} over HTTP (ring family)")
+    # the CPU sums the scans in another order, and its SSM prefill takes
+    # the chunked WKV (a reassociation): logits within 1e-3
+    hybrid = get_config(name).family == "hybrid"
+    check_small_reference(name, max_seq=256, lengths=(3, 17, 100),
+                          new_tokens=40, tol=1e-3,
+                          note=" (the 101-token prompt's decode wraps the "
+                               "128-entry ring)" if hybrid else "")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    code, env = http(server.url, "POST", f"/v2/model/{name}/deploy",
+                     {"paged": True})
+    if code != 200 or env.get("status") != "ok" or env["kv_cache"]["paged"]:
+        fail(f"deploy {name} failed or paged a ring family: {code} {env}")
+    dep = server.manager.get(name)
+    wrapper, eng, svc = dep.wrapper, dep.wrapper.engine, dep.service
+    cfg = wrapper.cfg
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(wrapper.params))
+    log(f"  deployed full-width {name} ({{\"paged\": true}} keeps the ring "
+        f"layout, as in the JAX engine): {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {n_params / 1e9:.2f} B f32 parameters, in "
+        f"{time.perf_counter() - t0:.1f} s; device memory "
+        f"{torch.cuda.memory_allocated() / 1e9:.1f} GB; kv_cache "
+        f"{json.dumps(env['kv_cache'])}")
+
+    greedy = [{"text": _text(n, i), "max_new_tokens": 48}
+              for i, n in enumerate((4, 60, 300, 1500))]
+    sampled = {"text": _text(30, 9), "max_new_tokens": 24, "temperature": 0.8}
+    requests = [("v2", g) for g in greedy] + [("v1", sampled)]
+    if len({len(wrapper.prepare_generation(r[1])[0]) for r in requests}) \
+            != len(requests):
+        fail("prompt lengths must differ: emitted tokens are keyed by them")
+    emitted, fmt = {}, wrapper.format_generation
+    wrapper.format_generation = lambda toks, n: (
+        emitted.setdefault(n, list(toks)), fmt(toks, n))[1]
+    kernels = (rglru_scan, wkv_scan, flash_attention, decode_attention,
+               paged_decode_attention)
+    for k in kernels:
+        k.launches = 0
+    s0, p0 = eng.steps_dispatched, eng.prefills_dispatched
+    outs, wall = predict_all(server.url, name, requests)
+    launches = {k.__name__: k.launches for k in kernels}
+    steps = eng.steps_dispatched - s0
+    prefills = eng.prefills_dispatched - p0
+    del wrapper.format_generation
+    stats = svc.stats()
+
+    for (route, inp), env in zip(requests, outs):
+        pred = env["predictions"][0]
+        log(f"  {route} prompt {pred['prompt_tokens']:4d} tokens, temperature "
+            f"{inp.get('temperature', 0.0)}: {pred['generated_tokens']} "
+            f"tokens")
+    want = {k: n * prefills for k, n in ring_kernel_counts(cfg).items()}
+    for k in kernels:
+        if launches[k.__name__] != want.get(k.__name__, 0):
+            fail(f"{k.__name__} launches {launches[k.__name__]} != "
+                 f"{want.get(k.__name__, 0)} ({prefills} prefills, {steps} "
+                 "decode steps)")
+    if prefills != len(requests) or steps == 0:
+        fail(f"{prefills} prefills and {steps} decode steps for "
+             f"{len(requests)} requests")
+    if stats["max_batch_seen"] < 2:
+        fail(f"no decode batch was shared: {stats['max_batch_seen']}")
+    toks = sum(e["predictions"][0]["generated_tokens"] for e in outs)
+    log(f"  {len(requests)} concurrent requests (4 v2 greedy, 1 v1 "
+        f"sampled), {toks} tokens in {wall:.2f} s ({toks / wall:.1f} "
+        f"tokens/s end to end); mean batch {stats['mean_batch_size']}, max "
+        f"{stats['max_batch_seen']}; TTFT p50 {stats['ttft']['p50_ms']} ms, "
+        f"max {stats['ttft']['max_ms']} ms")
+    log(f"  launches: " + ", ".join(f"{k} {n}" for k, n in launches.items())
+        + f" ({prefills} prefills, {steps} decode steps; per prefill "
+        f"{json.dumps(ring_kernel_counts(cfg))}, none in decode)")
+
+    # greedy outputs are independent of the co-batch: each greedy request
+    # alone over HTTP gives the same tokens
+    for inp, env in zip(greedy, outs):
+        (alone,), _ = predict_all(server.url, name, [("v2", inp)])
+        if alone["predictions"] != env["predictions"]:
+            fail("co-batched greedy output differs from the same request "
+                 "served alone")
+    log("  co-batched greedy outputs equal the same requests served alone")
+    check_against_forward(wrapper, greedy, emitted, name)
+    for inp in greedy[2:]:       # 301 and 1,501 tokens (a wrapped ring)
+        check_decode_logits(wrapper, inp, emitted)
+    profile_decode(eng, name)
+    eng.reset()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    # drop every reference to the model (``fmt`` is a bound method of the
+    # wrapper) so the undeploy frees its weights before the next family
+    dep = wrapper = eng = svc = fmt = None
+    code, _ = http(server.url, "DELETE", f"/v2/model/{name}")
+    if code != 200:
+        fail(f"undeploy {name} failed: {code}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() / 1e9
+    log(f"  {name}: peak device memory {peak:.1f} GB "
+        f"(torch.cuda.max_memory_allocated); after undeploy {left:.2f} GB "
+        "allocated")
+    if left > 1.0:
+        fail(f"undeploying {name} left {left:.1f} GB allocated")
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1005,12 +1405,28 @@ def main():
     cfg = get_config("qwen3-4b")
     card = phase_build()
     kernels = phase_kernels(cfg)
+    kernels.update(phase_recurrent_kernels())
     launches, greedy_inputs, greedy_outs = phase_main_path(cfg)
     gc.collect()
     torch.cuda.empty_cache()
     http_launches = phase_http(cfg, greedy_inputs, greedy_outs)
     launches["paged_decode_attention"] = \
         http_launches["paged_decode_attention"]
+    if torch.cuda.memory_allocated() > 1e9:
+        fail(f"{torch.cuda.memory_allocated() / 1e9:.1f} GB still allocated "
+             "before the recurrent families")
+    from repro_torch.core.api import MAXServer
+    server = MAXServer(build_kw={"smoke": False, "max_seq": 4096,
+                                 "max_batch": 4},
+                       service_kw={"batch_window_s": 0.05}).start()
+    try:
+        hybrid = phase_ring(server, "recurrentgemma-9b", 5)
+        ssm = phase_ring(server, "rwkv6-7b", 6)
+    finally:
+        server.stop()
+    launches["rglru_scan"] = hybrid["rglru_scan"]
+    launches["wkv_scan"] = ssm["wkv_scan"]
+    launches["flash_attention_hd256"] = hybrid["flash_attention"]
 
     sources = {
         "flash_attention": ("flash_attention",
@@ -1019,19 +1435,26 @@ def main():
                              "src/repro/kernels/decode_attention.py:195"),
         "paged_decode_attention": ("decode_attention",
                                    "src/repro/kernels/decode_attention.py:138"),
+        "rglru_scan": ("rglru", "src/repro/kernels/rglru.py:52"),
+        "wkv_scan": ("rwkv6", "src/repro/kernels/rwkv6.py:59"),
     }
+
+    def row(name):
+        k = kernels[name]
+        return {"launches": launches[name], "max_abs_err": k["max_abs_err"],
+                "ms": k["ms"], "plain_ms": k["plain_ms"],
+                "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+                "library_ms": k["library_ms"], "library": k["library"],
+                "timed_at": k["shape"]}
+
     line = []
     for name, (src, replaces) in sources.items():
-        k = kernels[name]
-        line.append({
-            "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{src}.cu",
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-            "bound_by": k["bound_by"], "library_ms": k["library_ms"],
-            "timed_at": k["shape"]})
-    log("== phase 5: kernels")
+        line.append({"name": name, "route": "cuda",
+                     "source": f"src/repro_torch/kernels/csrc/{src}.cu",
+                     "replaces": replaces, **row(name)})
+    # the same kernel at hd 256, on the hybrid's path
+    line[0]["hd256"] = row("flash_attention_hd256")
+    log("== phase 7: kernels")
     print(json.dumps({"kernels": line}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,11 @@ registry (``repro.configs``) lists every assigned architecture.
 
 from repro_torch.configs.base import ModelConfig, pad_to, reduce_for_smoke
 from repro_torch.configs.qwen3_4b import CONFIG as _qwen3_4b
+from repro_torch.configs.recurrentgemma_9b import CONFIG as _rg_9b
+from repro_torch.configs.rwkv6_7b import CONFIG as _rwkv6_7b
 
-CONFIGS: dict[str, ModelConfig] = {c.name: c for c in (_qwen3_4b,)}
+CONFIGS: dict[str, ModelConfig] = {
+    c.name: c for c in (_qwen3_4b, _rg_9b, _rwkv6_7b)}
 
 for _c in CONFIGS.values():
     _c.validate()

@@ -26,6 +26,8 @@ ENTRY_POINTS: Dict[str, Tuple[str, ...]] = {
     "flash_attention": ("flash_attention_fwd",),
     "decode_attention": ("decode_attention_fwd",
                          "paged_decode_attention_fwd"),
+    "rglru": ("rglru_scan_fwd",),
+    "rwkv6": ("wkv_scan_fwd",),
 }
 SOURCES = tuple(ENTRY_POINTS)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -29,6 +29,11 @@
 // (j < hd/16). Rows of Q and K are padded by one float in shared memory so
 // the column-strided reads do not collide on a bank.
 //
+// Head dims 64, 128 and 256 (RecurrentGemma's local attention: 16 query
+// heads on one KV head). At hd 256 the f32 tiles take 213,760 bytes of
+// shared memory (of the 232,448 a block may opt into), so one block runs
+// per SM, and each thread keeps 4 x 16 output accumulators in registers.
+//
 // Interface: plain C, launched on the caller's stream; returns the CUDA
 // error code after the launch (0 on success).
 
@@ -226,10 +231,14 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   if (Sq % BQ != 0 || Skv % BKV != 0 || KV <= 0 || H % KV != 0) return -1;
   if (kv_len > Skv) kv_len = Skv;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && hd == 256)
+    return launch<float, 256>(q, k, v, o, B, H, KV, Sq, Skv, causal, window, q_offset, kv_len, s);
   if (dtype == 0 && hd == 128)
     return launch<float, 128>(q, k, v, o, B, H, KV, Sq, Skv, causal, window, q_offset, kv_len, s);
   if (dtype == 0 && hd == 64)
     return launch<float, 64>(q, k, v, o, B, H, KV, Sq, Skv, causal, window, q_offset, kv_len, s);
+  if (dtype == 1 && hd == 256)
+    return launch<__nv_bfloat16, 256>(q, k, v, o, B, H, KV, Sq, Skv, causal, window, q_offset, kv_len, s);
   if (dtype == 1 && hd == 128)
     return launch<__nv_bfloat16, 128>(q, k, v, o, B, H, KV, Sq, Skv, causal, window, q_offset, kv_len, s);
   if (dtype == 1 && hd == 64)

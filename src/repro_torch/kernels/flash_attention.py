@@ -21,6 +21,7 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 BLOCK = 64          # the kernel's query and key tile
+HEAD_DIMS = (64, 128, 256)   # the head dims the kernel is built for
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,
@@ -65,8 +66,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     kv_len: Optional[int] = None):
     """q [B, H, Sq, hd]; k, v [B, KV, Skv, hd] -> [B, H, Sq, hd].
 
-    On CUDA: f32 or bf16, hd 64 or 128, Sq and Skv multiples of 64 (the
-    caller pads, see ``ops.flash_attention``), contiguous. ``kv_len``
+    On CUDA: f32 or bf16, hd in ``HEAD_DIMS``, Sq and Skv multiples of 64
+    (the caller pads, see ``ops.flash_attention``), contiguous. ``kv_len``
     (default Skv) masks padded key columns.
     """
     tensors = (q, k, v)
@@ -86,10 +87,11 @@ def flash_attention(q, k, v, *, causal: bool = True,
     B, H, Sq, hd = q.shape
     KV, Skv = k.shape[1], k.shape[2]
     if (k.shape[0] != B or k.shape[3] != hd or KV == 0 or H % KV
-            or hd not in (64, 128) or Sq % BLOCK or Skv % BLOCK):
+            or hd not in HEAD_DIMS or Sq % BLOCK or Skv % BLOCK):
         raise ValueError(f"flash_attention: unsupported shapes q "
-                         f"{tuple(q.shape)}, k {tuple(k.shape)} (hd 64|128, "
-                         f"Sq and Skv multiples of {BLOCK}, H % KV == 0)")
+                         f"{tuple(q.shape)}, k {tuple(k.shape)} (hd in "
+                         f"{HEAD_DIMS}, Sq and Skv multiples of {BLOCK}, "
+                         "H % KV == 0)")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("flash_attention: q, k, v must be contiguous")
     kv_len = Skv if kv_len is None else int(kv_len)

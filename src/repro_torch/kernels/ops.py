@@ -20,6 +20,8 @@ from repro_torch.kernels.decode_attention import (
 )
 from repro_torch.kernels.flash_attention import BLOCK
 from repro_torch.kernels.flash_attention import flash_attention as _flash
+from repro_torch.kernels.rglru import rglru_scan as _rglru
+from repro_torch.kernels.rwkv6 import wkv_scan as _wkv
 
 
 def _pad_to(x, axis: int, multiple: int):
@@ -63,3 +65,27 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, lengths):
     return _paged_decode(q.contiguous(), k_pool, v_pool,
                          block_table.to(torch.int32),
                          lengths.to(torch.int32))
+
+
+def rglru_scan(a, b, h0=None):
+    """a, b [B, S, W] -> (h [B, S, W], h_last [B, W]).
+
+    The JAX package pads S to its 128-step time block with a = b = 0 and
+    then reads ``h_last`` at S - 1 (``ops.py:91-105``); the CUDA kernel
+    takes any S and W, so nothing is padded and ``h_last`` is the state
+    after the last true step (``h0`` when S is 0)."""
+    return _rglru(a.contiguous(), b.contiguous(),
+                  None if h0 is None else h0.contiguous())
+
+
+def wkv_scan(r, k, v, w, u, s0=None):
+    """r/k/v/w [B, T, H, N]; u [H, N]; s0 [B, H, N, N] ->
+    (y [B, T, H, N], s_final [B, H, N, N]).
+
+    The JAX package transposes to ``[B, H, T, N]`` and pads T to its
+    128-step block with w = 1, k = 0 (``ops.py:108-123``); the CUDA kernel
+    reads the ``[B, T, H, N]`` layout as it is and takes any T, so
+    neither happens here."""
+    return _wkv(r.contiguous(), k.contiguous(), v.contiguous(),
+                w.contiguous(), u.contiguous(),
+                None if s0 is None else s0.contiguous())

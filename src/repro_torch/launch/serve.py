@@ -2,6 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --port 8080 \
         --deploy qwen3-4b --full-width --max-seq 2048
+    PYTHONPATH=src python -m repro_torch.launch.serve --port 8080 \
+        --deploy recurrentgemma-9b --full-width --max-seq 4096
 
 The flags are the JAX launcher's (``repro/launch/serve.py``), plus
 ``--device`` (default ``cuda``; the server raises at the first deploy

@@ -10,9 +10,12 @@ parameter dict and tensors:
 - ``decode_step(params, cache, tokens, active=None) -> (logits, cache)``
 - ``init_cache(batch, seq_len, device, paged=None) -> cache``
 
-The default types are the JAX package's: f32 parameters, a bf16 cache.
-``init`` and ``init_cache`` default to ``device="cuda"`` and raise
-without a GPU.
+Every family the port serves (dense, hybrid, SSM) is decoder-only and
+goes to ``models/transformer.py``, which branches by ``cfg.family`` as
+the JAX package's does (the JAX package's audio family goes to
+``encdec``, not ported). The default types are the JAX package's: f32
+parameters, a bf16 cache. ``init`` and ``init_cache`` default to
+``device="cuda"`` and raise without a GPU.
 """
 
 from __future__ import annotations

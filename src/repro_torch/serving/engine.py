@@ -29,8 +29,9 @@ allocator on the host (free list and table mirror; device rows are pushed
 without a sync): prefill allocates the prompt's pages plus the page of
 the first decode write, ``ensure_capacity`` secures a page per upcoming
 write, and retire returns every page. Only a linear cache pages; a ring
-cache (a sliding window shorter than ``max_seq``) keeps the linear layout
-silently, as in the JAX package.
+cache (a sliding window shorter than ``max_seq``, the hybrid's local
+attention, the SSM's state) keeps the linear layout silently, as in the
+JAX package.
 
 ``prefix_cache=True`` (paged engines only) adds the content-addressed
 prefix cache (``serving/prefix_cache.py``). Admission splits a prompt at
@@ -55,6 +56,7 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.model import Model
+from repro_torch.models.transformer import CACHE_BATCH_AXIS
 from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.sampling import gumbel_noise, mask_padded_vocab
 from repro_torch.serving.tracing import now as _now
@@ -104,11 +106,16 @@ class GenerationEngine:
         # kernel-launch audit compares against
         self.steps_dispatched = 0
         self.prefills_dispatched = 0
-        # A sliding window shorter than max_seq wraps: such engines keep a
-        # ring cache and left-pad prompts (pads count as context); a window
-        # >= max_seq never wraps, so the cache is plain linear and pageable.
-        self._ring = (self.cfg.sliding_window is not None
-                      and self.cfg.sliding_window < max_seq)
+        # Ring families (the hybrid's local attention, the SSM's state, a
+        # sliding window shorter than max_seq) keep their cache layout and
+        # left-pad prompts (pads count as context, and run through the
+        # recurrences); a window >= max_seq never wraps, so the cache is
+        # plain linear and pageable. A paged request on a ring family
+        # falls back to it silently (``engine.py:123-134`` of the JAX
+        # package).
+        self._ring = (self.cfg.family in ("hybrid", "ssm")
+                      or (self.cfg.sliding_window is not None
+                          and self.cfg.sliding_window < max_seq))
         self.paged = bool(paged) and not self._ring
         self.page_size = 0
         self.kv_pool_blocks = 0
@@ -130,9 +137,14 @@ class GenerationEngine:
 
     @staticmethod
     def _bytes_per_token(cache) -> int:
-        """Device bytes one token of context costs across all layers."""
-        k = cache["k_pool"] if "k_pool" in cache else cache["k"]
-        return 2 * k.shape[0] * k.shape[3] * k.shape[4] * k.element_size()
+        """Device bytes one token of context costs across all layers (0
+        for the SSM's constant-size state)."""
+        for key in ("k_pool", "k", "attn_k"):    # [L|nb, ., ., KV, hd]
+            if key in cache:
+                k = cache[key]
+                return 2 * k.shape[0] * k.shape[3] * k.shape[4] \
+                    * k.element_size()
+        return 0
 
     def _h2d(self, arr, dtype) -> torch.Tensor:
         """Host array -> fresh device tensor without waiting for the
@@ -182,6 +194,14 @@ class GenerationEngine:
                 self._cache[name].dtype)
         self._cache["lengths"][slot] = one_cache["lengths"][0]
         self._push_table_row(slot)
+
+    def _insert(self, one_cache, slot: int):
+        """Copy every leaf of a B=1 prefill cache into ``slot`` of the
+        batch cache, in place (the JAX engine donates it), along each
+        leaf's named batch axis."""
+        for name, dst in self._cache.items():
+            ax = CACHE_BATCH_AXIS[name]
+            dst.select(ax, slot).copy_(one_cache[name].select(ax, 0))
 
     def _alloc_blocks(self, slot: int, n: int) -> bool:
         """Move ``n`` pool pages to ``slot`` (all-or-nothing). With a
@@ -559,10 +579,7 @@ class GenerationEngine:
             if self.paged:
                 self._insert_paged(one, slot)
             else:
-                # in place into the batch cache (the JAX engine donates it)
-                self._cache["k"][:, slot] = one["k"][:, 0]
-                self._cache["v"][:, slot] = one["v"][:, 0]
-                self._cache["lengths"][slot] = one["lengths"][0]
+                self._insert(one, slot)
             first = self._first_token(logits[0], slot)
         except Exception:
             self.release_slot(slot)     # no orphaned slot or leaked pages

@@ -30,6 +30,7 @@ from repro.core import MAXServer as JaxServer  # noqa: E402
 from repro.core.api import build_router as jax_build_router  # noqa: E402
 from repro.core.registry import ModelRegistry  # noqa: E402
 from repro.models import build_model as jax_build_model  # noqa: E402
+from repro_torch.configs import CONFIGS as PORT_CONFIGS  # noqa: E402
 from repro_torch.core.api import MAXServer, build_router  # noqa: E402
 
 BUILD_KW = {"max_seq": 64, "max_batch": 4}
@@ -49,7 +50,8 @@ PORTED_V2 = {("GET", "/v2/models"),
 @pytest.fixture(scope="module")
 def servers():
     reg = ModelRegistry()
-    reg.register(JAX_EXCHANGE.get("qwen3-4b"))
+    for name in PORT_CONFIGS:           # the assets the port serves
+        reg.register(JAX_EXCHANGE.get(name))
     jparams = jax_build_model(reduce_for_smoke(CONFIGS["qwen3-4b"])).init(
         jax.random.PRNGKey(0))      # what the JAX asset builds at seed 0
     params = jax.tree_util.tree_map(np.asarray, jparams)
@@ -201,8 +203,9 @@ def test_routes_endpoint_and_swagger_cover_exactly_what_is_served(servers):
     code, spec = _req(ts, "GET", "/swagger.json")
     assert code == 200 and spec["openapi"].startswith("3.")
     routed = {(r["method"].lower(), r["path"]) for r in body["routes"]}
-    per_asset = {("post", "/model/qwen3-4b/predict"),
-                 ("get", "/model/qwen3-4b/metadata")}
+    per_asset = {pair for name in PORT_CONFIGS
+                 for pair in (("post", f"/model/{name}/predict"),
+                              ("get", f"/model/{name}/metadata"))}
     documented = {(m, p) for p, ops in spec["paths"].items() for m in ops}
     assert documented == routed | per_asset
     for method, path in routed:     # every documented route dispatches

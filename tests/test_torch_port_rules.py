@@ -124,7 +124,7 @@ def test_kernel_sources_name_their_tpu_kernel_and_use_no_library():
     from repro_torch.kernels import build
     for name in build.SOURCES:
         src = (PORT / "kernels" / "csrc" / f"{name}.cu").read_text()
-        assert f"repro/kernels/{name}.py::{name}" in src
+        assert f"repro/kernels/{name}.py::" in src
         for entry in build.ENTRY_POINTS[name]:
             assert f'extern "C" int {entry}(' in src
             kernel = entry[:-len("_fwd")]
@@ -137,3 +137,54 @@ def test_kernel_sources_name_their_tpu_kernel_and_use_no_library():
     mod = (PORT / "kernels" / "decode_attention.py").read_text()
     assert "paged_decode_attention.launches += 1" in mod
     assert "def paged_decode_attention_plain" in mod
+
+
+def test_recurrent_modules_import_no_jax():
+    code = ("import sys; import repro_torch.models.rglru, "
+            "repro_torch.models.rwkv6, repro_torch.kernels.rglru, "
+            "repro_torch.kernels.rwkv6, repro_torch.flags; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]; assert not bad, bad")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   timeout=120)
+    scanned = {p.relative_to(PORT).as_posix() for p in FILES if PORT in
+               p.parents}
+    assert {"models/rglru.py", "models/rwkv6.py", "kernels/rglru.py",
+            "kernels/rwkv6.py", "flags.py", "configs/recurrentgemma_9b.py",
+            "configs/rwkv6_7b.py"} <= scanned
+
+
+@pytest.mark.parametrize("name", ["recurrentgemma-9b", "rwkv6-7b"])
+def test_recurrent_families_default_to_cuda(name):
+    """The hybrid and SSM models' entry points default to ``cuda`` and
+    raise without a GPU, like the dense family's."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import reduce_for_smoke
+    from repro_torch.core.assets import EXCHANGE
+    from repro_torch.models.model import build_model
+    model = build_model(reduce_for_smoke(get_config(name)))
+    for fn in (model.init, model.init_cache):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    for call in (model.init, lambda: model.init_cache(1, 32),
+                 lambda: EXCHANGE.get(name).build(),
+                 lambda: EXCHANGE.get(name).build(paged=True)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+
+
+def test_recurrent_kernel_sources_and_wrappers():
+    """The two recurrent kernels: each source names its TPU kernel, its
+    module keeps the plain version and a launch counter, and neither
+    module calls a library scan."""
+    from repro_torch.kernels import build
+    assert build.ENTRY_POINTS["rglru"] == ("rglru_scan_fwd",)
+    assert build.ENTRY_POINTS["rwkv6"] == ("wkv_scan_fwd",)
+    for name, fn in (("rglru", "rglru_scan"), ("rwkv6", "wkv_scan")):
+        src = (PORT / "kernels" / "csrc" / f"{name}.cu").read_text()
+        assert f"repro/kernels/{name}.py::{fn}" in src
+        mod = (PORT / "kernels" / f"{name}.py").read_text()
+        assert f"def {fn}_plain(" in mod and f"{fn}.launches += 1" in mod
+        assert "cumsum" not in mod and "cumprod" not in mod

@@ -1,0 +1,185 @@
+"""The recurrent kernels' plain versions (and flash at head_dim 256) vs the
+JAX package's oracles and its Pallas kernels in interpret mode, on the CPU.
+
+The CUDA kernels run only on a GPU (chip_smoke.py holds them against
+these plain versions there). Here the same numpy inputs, made from a
+seed, go through ``repro.kernels.ref``, the Pallas kernel in interpret
+mode, and the port's plain version, wrapper and ``ops`` dispatch.
+Tolerances: ``rglru_scan`` and flash at tests/test_kernels.py's f32 atol
+1e-5 / rtol 1e-4 and 2e-5 / 2e-4 (one recurrence, summed in the same
+order; attention sums in another order); ``wkv_scan`` at its atol 1e-4 /
+rtol 1e-3 (an N-term dot product per step, accumulated over T steps).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref  # noqa: E402
+from repro.kernels.flash_attention import flash_attention as pallas_flash  # noqa: E402
+from repro.kernels.rglru import rglru_scan as pallas_rglru  # noqa: E402
+from repro.kernels.rwkv6 import wkv_scan as pallas_wkv  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention_plain  # noqa: E402
+from repro_torch.kernels.rglru import rglru_scan, rglru_scan_plain  # noqa: E402
+from repro_torch.kernels.rwkv6 import wkv_scan, wkv_scan_plain  # noqa: E402
+
+RGLRU_TOL = dict(atol=1e-5, rtol=1e-4)
+WKV_TOL = dict(atol=1e-4, rtol=1e-3)
+FLASH_TOL = dict(atol=2e-5, rtol=2e-4)
+
+
+def _arr(shape, seed, scale=1.0, lo=None, hi=None):
+    x = np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+    x = x * scale
+    if lo is not None:
+        x = np.clip(np.abs(x), lo, hi)
+    return x
+
+
+def _both(x):
+    return jnp.asarray(x), torch.from_numpy(x.copy())
+
+
+@pytest.fixture
+def interpret_backend():
+    """The JAX ops dispatch in interpret mode, restored even on failure."""
+    jops.set_backend("interpret")
+    try:
+        yield
+    finally:
+        jops.set_backend("ref")
+
+
+# ---------------------------------------------------------------------------
+# rglru_scan
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,S,W,bt,bw", [
+    (2, 256, 512, 128, 512),
+    (1, 256, 1024, 64, 256),
+    (4, 128, 256, 128, 256),
+])
+def test_rglru_plain_matches_pallas_and_ref(B, S, W, bt, bw):
+    ja, ta = _both(_arr((B, S, W), 1, lo=0.5, hi=0.999))
+    jb, tb = _both(_arr((B, S, W), 2, scale=0.1))
+    jh0, th0 = _both(_arr((B, W), 3, scale=0.1))
+    want = np.asarray(ref.rglru_ref(ja, jb, jh0))
+    ph, plast = pallas_rglru(ja, jb, jh0, bt=bt, bw=bw, interpret=True)
+    h, last = rglru_scan_plain(ta, tb, th0)
+    np.testing.assert_allclose(h.numpy(), want, **RGLRU_TOL)
+    np.testing.assert_allclose(h.numpy(), np.asarray(ph), **RGLRU_TOL)
+    np.testing.assert_allclose(last.numpy(), np.asarray(plast), **RGLRU_TOL)
+    np.testing.assert_allclose(last.numpy(), want[:, -1], **RGLRU_TOL)
+
+
+@pytest.mark.parametrize("S", [1, 77, 200])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_rglru_ops_ragged_matches_jax_ops(interpret_backend, S, with_h0):
+    """S not a multiple of the Pallas block: JAX pads with a = b = 0 and
+    reads h_last at S - 1; the port pads nothing."""
+    B, W = 2, 256
+    ja, ta = _both(_arr((B, S, W), 4, lo=0.5, hi=0.999))
+    jb, tb = _both(_arr((B, S, W), 5, scale=0.1))
+    jh0, th0 = _both(_arr((B, W), 6, scale=0.1))
+    jh, jlast = jops.rglru_scan(ja, jb, jh0 if with_h0 else None)
+    n0 = rglru_scan.launches
+    h, last = ops.rglru_scan(ta, tb, th0 if with_h0 else None)
+    assert rglru_scan.launches == n0        # CPU tensors: no kernel
+    assert h.shape == (B, S, W) and last.shape == (B, W)
+    np.testing.assert_allclose(h.numpy(), np.asarray(jh), **RGLRU_TOL)
+    np.testing.assert_allclose(last.numpy(), np.asarray(jlast), **RGLRU_TOL)
+
+
+def test_rglru_empty_sequence_keeps_h0():
+    h0 = torch.from_numpy(_arr((2, 8), 7))
+    h, last = rglru_scan(torch.zeros(2, 0, 8), torch.zeros(2, 0, 8), h0)
+    assert h.shape == (2, 0, 8)
+    torch.testing.assert_close(last, h0, rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# wkv_scan
+# ---------------------------------------------------------------------------
+
+def _wkv_inputs(B, T, H, N, seed=10):
+    """r/k/v/w [B, T, H, N], u [H, N], s0 [B, H, N, N] as numpy."""
+    return (_arr((B, T, H, N), seed), _arr((B, T, H, N), seed + 1, 0.2),
+            _arr((B, T, H, N), seed + 2),
+            _arr((B, T, H, N), seed + 3, lo=0.9, hi=0.999),
+            _arr((H, N), seed + 4), _arr((B, H, N, N), seed + 5, 0.1))
+
+
+@pytest.mark.parametrize("B,T,H,N,bt", [
+    (2, 256, 4, 64, 128),
+    (1, 128, 2, 128, 64),
+    (3, 64, 8, 64, 64),
+])
+def test_wkv_plain_matches_pallas_and_ref(B, T, H, N, bt):
+    r, k, v, w, u, s0 = _wkv_inputs(B, T, H, N)
+    jr, jk, jv, jw, ju, js0 = (jnp.asarray(x) for x in (r, k, v, w, u, s0))
+    y_ref, s_ref = ref.rwkv6_ref(jr, jk, jv, jw, ju, js0)
+    tr = lambda t: jnp.swapaxes(t, 1, 2)        # noqa: E731
+    py, ps = pallas_wkv(tr(jr), tr(jk), tr(jv), tr(jw), ju, js0, bt=bt,
+                        interpret=True)
+    y, s = wkv_scan_plain(*(torch.from_numpy(x) for x in (r, k, v, w, u,
+                                                          s0)))
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_ref), **WKV_TOL)
+    np.testing.assert_allclose(s.numpy(), np.asarray(s_ref), **WKV_TOL)
+    np.testing.assert_allclose(y.numpy(), np.asarray(tr(py)), **WKV_TOL)
+    np.testing.assert_allclose(s.numpy(), np.asarray(ps), **WKV_TOL)
+
+
+@pytest.mark.parametrize("T", [1, 50, 130])
+@pytest.mark.parametrize("with_s0", [False, True])
+def test_wkv_ops_ragged_matches_jax_ops(interpret_backend, T, with_s0):
+    """A ragged T through both ``ops``: JAX transposes and pads with w = 1,
+    k = 0; the port takes ``[B, T, H, N]`` as it is."""
+    r, k, v, w, u, s0 = _wkv_inputs(2, T, 2, 64, seed=20)
+    jy, js = jops.wkv_scan(*(jnp.asarray(x) for x in (r, k, v, w, u)),
+                           jnp.asarray(s0) if with_s0 else None)
+    n0 = wkv_scan.launches
+    y, s = ops.wkv_scan(*(torch.from_numpy(x) for x in (r, k, v, w, u)),
+                        torch.from_numpy(s0) if with_s0 else None)
+    assert wkv_scan.launches == n0          # CPU tensors: no kernel
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), **WKV_TOL)
+    np.testing.assert_allclose(s.numpy(), np.asarray(js), **WKV_TOL)
+
+
+def test_wrappers_refuse_mixed_devices():
+    a = torch.zeros(1, 4, 8)
+    meta = torch.zeros(1, 4, 8, device="meta")
+    with pytest.raises(ValueError, match="one CUDA device"):
+        rglru_scan(a, meta)
+    x = torch.zeros(1, 4, 2, 64)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        wkv_scan(x, x, x, x.to("meta"), torch.zeros(2, 64))
+
+
+# ---------------------------------------------------------------------------
+# flash attention at head_dim 256 (RecurrentGemma's local attention)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("S,window", [(128, 32), (96, 128), (64, None)])
+def test_flash_hd256_mqa_window_matches_pallas(S, window):
+    """16 query heads on one KV head at hd 256, causal, with the local
+    window (and without): the plain version against the Pallas kernel in
+    interpret mode, through both ``ops`` paddings. Every causal row sees
+    its own key, so no row is fully masked."""
+    B, H, KV, hd = 1, 16, 1, 256
+    jq, tq = _both(_arr((B, H, S, hd), 30))
+    jk, tk = _both(_arr((B, KV, S, hd), 31))
+    jv, tv = _both(_arr((B, KV, S, hd), 32))
+    want = pallas_flash(jq, jk, jv, causal=True, window=window, bq=32,
+                        bkv=32, interpret=True)
+    got = flash_attention_plain(tq, tk, tv, causal=True, window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **FLASH_TOL)
+    via_ops = ops.flash_attention(tq, tk, tv, causal=True, window=window)
+    np.testing.assert_allclose(via_ops.numpy(), np.asarray(want),
+                               **FLASH_TOL)
+    oracle = ref.attention_ref(jq, jk, jv, causal=True, window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(oracle), **FLASH_TOL)
