@@ -10,7 +10,8 @@ Phases, in order; any failure exits non-zero:
 2. hold each kernel against its plain PyTorch version on the card, at the
    main path's full-width shapes and at small ones (2b: the recurrent
    kernels and flash at head_dim 256, at the hybrid's and the SSM's
-   full-width prefill shapes);
+   full-width prefill shapes; 2c: ``gmm`` at every shape phase 8 can give
+   it, a decode step's and each prefill bucket's, and at ragged ones);
 3. drive the contiguous path: full-width ``qwen3-4b`` (random weights from
    a seed) built through the exchange on ``cuda`` and served by
    ``BatchedService`` to concurrent greedy requests and one sampled one;
@@ -32,10 +33,20 @@ Phases, in order; any failure exits non-zero:
    ``wkv_scan``; none in decode), co-batched == alone, every greedy token
    against the scoring forward's argmax, and the reduced model GPU == CPU;
    profile a decode step; print the peak memory; undeploy;
-7. print ``{"kernels": [...]}`` with each kernel's launches on its path,
-   its error against the plain version, and its time, the plain version's
-   time, the bound and a library call's time, all measured here;
-8. print ``{"ok": true, "device": {...}}`` as the last line.
+8. the MoE family: reduced Phi-3.5-MoE and Qwen3-MoE GPU == CPU, then
+   full-width Phi-3.5-MoE cut to 8 of its 32 layers (42.7 GB of f32
+   weights) deployed over HTTP with ``{"paged": true, "prefix_cache":
+   true}``; the same traffic as 5-6, then each greedy request alone (a
+   warm replay); check 3 ``gmm`` per layer per prefill and per decode or
+   fill step, each at a shape 2c checked, co-batched == alone, the pool,
+   and print the assignments each served prefill dropped (capacity; from
+   a replay of the prefill, outside the timed traffic); greedy tokens
+   against a dropless scoring forward where no real token's assignment
+   dropped; profile a decode step; undeploy;
+7. then print ``{"kernels": [...]}`` with each kernel's launches on its
+   path, its error against the plain version, and its time, the plain
+   version's time, the bound and a library call's time, all measured
+   here; and ``{"ok": true, "device": {...}}`` as the last line.
 
 It imports nothing of JAX and nothing of the JAX package. Without a GPU,
 or without the repository beside it, it exits non-zero and prints no
@@ -640,6 +651,101 @@ def phase_recurrent_kernels():
         shape=f"q [1,{Hq},{S},{hd}] f32, k/v [1,{KV},{S},{hd}], causal, "
               f"window {window}")
     return out
+
+
+def moe_gmm_shapes():
+    """Every shape phase 8's served path can give ``gmm``: a gate/up
+    ``(E, C, d_model, d_ff)`` and a down ``(E, C, d_ff, d_model)`` for each
+    capacity C of a decode or fill step (``MOE_MAX_BATCH`` tokens) and of a
+    prefill of each bucket up to ``MOE_MAX_SEQ`` (16-2,048 tokens: C = 8,
+    16, 24, 40, 80, 160, 320 at Phi-3.5-MoE's E = 16, top-2, factor
+    1.25)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import capacity
+    from repro_torch.serving.engine import _bucket
+    cfg = get_config(MOE_NAME)
+    E, K, d, f = (cfg.num_experts, cfg.num_experts_per_tok, cfg.d_model,
+                  cfg.d_ff)
+    tokens, T = {MOE_MAX_BATCH}, _bucket(1)
+    while T <= MOE_MAX_SEQ:
+        tokens.add(T)
+        T *= 2
+    caps = sorted({capacity(T, E, K, cfg.moe_capacity_factor)
+                   for T in tokens})
+    return [(E, C, d, f) for C in caps] + [(E, C, f, d) for C in caps]
+
+
+def phase_gmm_kernel():
+    """``gmm`` against its plain version at every shape phase 8's path can
+    give it (``moe_gmm_shapes``: both kernel paths, C <= 16 and C > 16)
+    and at ragged ones (with and without 16-byte rows); then each path
+    shape timed with a cold L2 beside the plain version and ``torch.bmm``
+    (TF32 off). Returns {shape: row}, each row with its own shape's
+    error."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.gmm import gmm, gmm_plain
+
+    log("== phase 2c: gmm (grouped matmul) vs its plain version")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def inputs(E, C, d, f):
+        # x like a normed hidden state; w as dense_init draws it
+        return (torch.randn(E, C, d, device=dev, generator=gen),
+                torch.randn(E, d, f, device=dev, generator=gen) * d ** -0.5)
+
+    path = moe_gmm_shapes()
+    ragged = ((3, 60, 100, 300), (2, 37, 99, 203), (3, 5, 99, 77),
+              (2, 13, 64, 130), (2, 13, 64, 128), (1, 17, 1, 3))
+    errs = {}
+    for E, C, d, f in (*path, *ragged):
+        x, w = inputs(E, C, d, f)
+        errs[(E, C, d, f)] = check_close(
+            f"gmm [{E},{C},{d}] @ [{E},{d},{f}] f32", ops.gmm(x, w),
+            gmm_plain(x, w), "float32")
+        del x, w
+    # refusals before any launch
+    n0 = gmm.launches
+    x, w = inputs(2, 8, 16, 32)
+    for what, bad in (("bf16", lambda: gmm(x.bfloat16(), w.bfloat16())),
+                      ("d mismatch", lambda: gmm(x, w[:, :8])),
+                      ("E mismatch", lambda: gmm(x, w[:1])),
+                      ("non-contiguous", lambda: gmm(x.transpose(1, 2),
+                                                     w[:, :8])),
+                      ("w on the CPU", lambda: gmm(x, w.cpu()))):
+        try:
+            bad()
+        except ValueError:
+            continue
+        fail(f"the gmm wrapper took an input its kernel does not: {what}")
+    if gmm.launches != n0:
+        fail("a refused gmm input was counted as a launch")
+    log("  gmm refuses other dtypes, shapes, layouts and devices with "
+        "ValueError: ok")
+
+    rows = {}
+    for E, C, d, f in path:
+        x, w = inputs(E, C, d, f)
+        bound, bound_by = bound_ms(4 * (E * C * d + E * d * f + E * C * f),
+                                   2 * E * C * d * f)
+        ms = cuda_ms(lambda: gmm(x, w))
+        plain_ms = cuda_ms(lambda: gmm_plain(x, w))
+        lib_ms = cuda_ms(lambda: torch.bmm(x, w))
+        log(f"  gmm [{E},{C},{d}] @ [{E},{d},{f}] f32 "
+            f"({'small-C' if C <= 16 else 'tiled'} path): kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.bmm {lib_ms:.4f} "
+            f"ms, bound {bound:.4f} ms ({bound_by}; "
+            f"{2 * E * C * d * f / 1e9:.1f} GFLOP, "
+            f"{4 * E * d * f / 1e9:.2f} GB of weights)")
+        rows[(E, C, d, f)] = dict(
+            max_abs_err=errs[(E, C, d, f)], ms=ms, plain_ms=plain_ms,
+            bound_ms=bound, bound_by=bound_by, library_ms=lib_ms,
+            library="torch.bmm (f32, TF32 off)",
+            shape=f"x [{E},{C},{d}] f32, w [{E},{d},{f}]")
+        del x, w
+    torch.cuda.empty_cache()
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1383,6 +1489,434 @@ def phase_ring(server, name, number):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the MoE family over HTTP, at full width and cut depth
+# ---------------------------------------------------------------------------
+
+MOE_NAME = "phi3.5-moe-42b-a6.6b"
+# every published width, 8 of the 32 layers: 10.67 B f32 parameters (42.7
+# GB). All 32 are 41.9 B (167.5 GB in f32, 83.7 GB in bf16): no single
+# 80 GB card holds them, and the port has no sharding yet.
+MOE_LAYERS = 8
+MOE_MAX_SEQ, MOE_MAX_BATCH = 2048, 4
+
+
+# a router near-tie: the k-th and (k+1)-th router logits of a token closer
+# than this. Decode reads the bf16 cache where the forward has f32 K/V,
+# which moves router logits by about a hundredth; a routing difference at
+# a wider margin than this is a fault, not rounding
+NEAR_TIE = 0.1
+
+
+class RouteRecorder:
+    """While entered, wraps ``models.moe.moe_apply`` (the transformer calls
+    it through the module) and recomputes each call's routing from its
+    router on the device: per call, the tokens T, the capacity C, the
+    top-k experts of each token ([T, K], ascending), the margin between
+    its k-th and (k+1)-th router logits ([T]) and which assignment
+    (token-major, k-minor) went to the sink. Only device tensors are kept,
+    so the served path gains no host sync."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.apply, self.calls = moe, moe.moe_apply, []
+
+    def __enter__(self):
+        import torch
+        moe, apply, calls = self.moe, self.apply, self.calls
+
+        def recorded(params, x, cfg, **kw):
+            T = x.shape[0] * x.shape[1]
+            E, K = cfg.num_experts, cfg.num_experts_per_tok
+            C = moe.capacity(T, E, K, kw.get("capacity_factor")
+                             or cfg.moe_capacity_factor)
+            logits = x.reshape(T, -1).float() @ params["w_router"]
+            top_i = torch.topk(torch.softmax(logits, dim=-1), K, dim=-1,
+                               sorted=True).indices
+            near = torch.topk(logits, min(K + 1, E), dim=-1).values
+            calls.append((T, C, top_i.sort(dim=-1).values,
+                          moe.dispatch_slots(top_i, E, C) == E * C,
+                          near[:, K - 1] - near[:, -1]))
+            return apply(params, x, cfg, **kw)
+        moe.moe_apply = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.moe_apply = self.apply
+
+    def by_layer(self, calls, num_layers, field=2):
+        """Consecutive calls (one model pass each ``num_layers``) -> one
+        recorded field stacked [num_layers, passes, ...]: 2 the experts
+        [T, K], 3 the sinks [T*K], 4 the near-tie margins [T]."""
+        import torch
+        if len(calls) % num_layers:
+            fail(f"{len(calls)} MoE calls are not whole passes of "
+                 f"{num_layers} layers")
+        out = torch.stack([c[field] for c in calls])
+        return out.view(-1, num_layers, *out.shape[1:]).transpose(0, 1)
+
+
+def first_route_difference(route, fwd, margin):
+    """(first position at which a routing ``route`` [L, S, K] (ascending
+    experts) differs from the forward's ``fwd`` in any layer, the widest
+    forward router margin among the layers that differ there): (S, None)
+    when they agree throughout. Fails unless every layer that differs was
+    a near-tie in the forward (``margin`` [L, S] < ``NEAR_TIE``)."""
+    differs = (route != fwd).any(dim=-1)                         # [L, S]
+    if not bool(differs.any()):
+        return route.shape[1], None
+    pos = int(differs.any(dim=0).nonzero()[0])
+    widest = margin[differs[:, pos], pos].max().item()
+    if widest >= NEAR_TIE:
+        fail(f"the routing differs from the forward's at position {pos} "
+             f"where the forward's router margin is {widest:.3f} (a "
+             f"near-tie is < {NEAR_TIE})")
+    return pos, widest
+
+
+def _routing(pos, length, margin):
+    if margin is None:
+        return f"routing equal to the forward's at all {length} positions"
+    return (f"routing first differs from the forward's at position {pos} "
+            f"of {length} (a near-tie there: margin {margin:.4f})")
+
+
+def forward_routes(model, params, tokens):
+    """(logits [S, V_padded], experts [L, S, K], near-tie margins [L, S])
+    of ``model``'s forward over ``tokens``."""
+    import torch
+    L = model.cfg.num_layers
+    with RouteRecorder() as rec, torch.no_grad():
+        logits = model.forward(params, {"tokens": tokens[None]})[0]
+    return (logits, rec.by_layer(rec.calls, L)[:, 0],
+            rec.by_layer(rec.calls, L, field=4)[:, 0])
+
+
+def check_moe_against_forward(wrapper, model, prompt, out, route):
+    """Every greedy token the served MoE request emitted (``out``) against
+    ``model``'s forward over the same sequence, through the last position
+    before the served path's routing (``route`` [L, S, K]: the experts of
+    each position in each layer) first differs from the forward's. Past
+    that point the two are different functions: a bf16 KV value (decode
+    reads the cache, the forward f32 K/V) can move a router near-tie to
+    the other expert. Returns (tokens held, tokens)."""
+    import torch
+    V, dev = wrapper.cfg.vocab_size, wrapper.engine.device
+    seq = torch.tensor(prompt + out[:-1], device=dev)
+    ref, fwd, margin = forward_routes(model, wrapper.params, seq)
+    if not torch.isfinite(ref).all():
+        fail("the scoring forward gave non-finite logits")
+    n = len(prompt)
+    same, tie = first_route_difference(route[:, :len(seq)], fwd, margin)
+    held = max(0, min(len(out), same - (n - 1)))
+    ref = ref[n - 1:n - 1 + held, :V]
+    gap = ref.max(dim=-1).values - ref.gather(
+        1, torch.tensor(out[:held], device=dev)[:, None])[:, 0]
+    rel = (gap / ref.std(dim=-1)).max().item() if held else 0.0
+    log(f"  {n}-token request vs the dropless forward: "
+        f"{_routing(same, len(seq), tie)}; {held} of {len(out)} greedy "
+        f"tokens held, "
+        f"{int((gap == 0).sum())} the forward's argmax, largest gap "
+        f"{rel:.4f} std (margin 0.2)")
+    if rel > 0.2:
+        fail(f"a greedy MoE request emitted a token {rel:.3f} std below "
+             f"the scoring forward's argmax before any routing difference")
+    return held, len(out)
+
+
+def check_moe_decode_logits(wrapper, model, inp, emitted, tol=0.05):
+    """``check_decode_logits`` for MoE with the routing recorded on both
+    sides: the prompt is prefilled at B=1 and its emitted tokens fed back
+    through ``decode_step`` (the decode kernel, ``gmm`` at C = 8), and each
+    position's logits must lie within ``tol`` x the std of the forward's
+    through the last position before the decode path's routing first
+    differs from the forward's."""
+    import torch
+    params, eng = wrapper.params, wrapper.engine
+    V, dev, L = wrapper.cfg.vocab_size, eng.device, model.cfg.num_layers
+    prompt = wrapper.prepare_generation(inp)[0]
+    out = emitted[len(prompt)]
+    n = len(prompt)
+    with RouteRecorder() as rec, torch.no_grad():
+        logits, cache = model.prefill(
+            params, {"tokens": torch.tensor([prompt], device=dev)},
+            cache_len=eng.max_seq)
+        rows = [logits[0, :V]]
+        for t in out[:-1]:
+            logits, cache = model.decode_step(
+                params, cache, torch.tensor([t], dtype=torch.int32,
+                                            device=dev))
+            rows.append(logits[0, :V])
+    pre = rec.by_layer(rec.calls[:L], L)[:, 0]
+    dec = rec.by_layer(rec.calls[L:], L)[:, :, 0]
+    route = torch.cat([pre, dec], dim=1)
+    del cache
+    ref, fwd, margin = forward_routes(model, params, torch.tensor(
+        prompt + out[:-1], device=dev))
+    same, tie = first_route_difference(route, fwd, margin)
+    held = max(0, min(len(rows), same - (n - 1)))
+    ref = ref[n - 1:n - 1 + held, :V]
+    err = ((torch.stack(rows[:held]) - ref).abs().max(dim=-1).values
+           / ref.std(dim=-1)).max().item() if held else 0.0
+    log(f"  {n}-token prompt + {len(out) - 1} decode steps at B=1: "
+        f"{_routing(same, n + len(out) - 1, tie)}; logits of {held} of "
+        f"{len(rows)} positions within {err:.4f} std of the forward's "
+        f"(tolerance {tol} std)")
+    if held == 0:
+        fail("the prefill's last position already routes differently "
+             "from the forward's")
+    if not err <= tol:
+        fail(f"decode-step logits differ from the forward's by {err:.3f} "
+             f"std (tolerance {tol})")
+
+
+def phase_moe(gmm_checked):
+    """Deploy full-width Phi-3.5-MoE at ``MOE_LAYERS`` layers over HTTP
+    with the paged pool and the prefix cache (max_batch 4, max_seq 2048);
+    serve four greedy v2 predicts of 5-1501 tokens and one v1 predict
+    sampled at 0.8 at once, then each greedy request alone (a warm replay
+    from its cached pages); check the launches (3 ``gmm`` per layer per
+    prefill and per decode or fill step, each at a shape phase 2c checked,
+    ``gmm_checked``), co-batched == alone, the pool, and the dropped
+    assignments of each served prefill (its routing recorded in a replay
+    of the same prefill call, so the timed traffic is not instrumented);
+    hold the greedy
+    tokens to a dropless scoring forward where the prefill dropped no real
+    token's assignment, through the routing they share; profile a decode
+    step; undeploy."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.api import MAXServer
+    from repro_torch.core.assets import _make_asset
+    from repro_torch.core.registry import ModelRegistry
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, paged_decode_attention)
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.gmm import gmm
+    from repro_torch.kernels.rglru import rglru_scan
+    from repro_torch.kernels.rwkv6 import wkv_scan
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import _bucket
+
+    log("== phase 8: the MoE family over HTTP (paged pool, prefix cache)")
+    # the contiguous engine (decode_attention) on MoE, GPU kernels vs the
+    # CPU's plain versions; routing and drops are the same on both
+    for name in (MOE_NAME, "qwen3-moe-235b-a22b"):
+        check_small_reference(name, max_seq=256, lengths=(3, 17, 100),
+                              new_tokens=40, tol=1e-4)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    cfg = get_config(MOE_NAME).replace(num_layers=MOE_LAYERS)
+    registry = ModelRegistry()
+    registry.register(_make_asset(cfg))
+    server = MAXServer(registry=registry,
+                       build_kw={"smoke": False, "max_seq": MOE_MAX_SEQ,
+                                 "max_batch": MOE_MAX_BATCH},
+                       service_kw={"batch_window_s": 0.05}).start()
+    try:
+        t0 = time.perf_counter()
+        code, env = http(server.url, "POST", f"/v2/model/{MOE_NAME}/deploy",
+                         {"paged": True, "prefix_cache": True})
+        if code != 200 or env.get("status") != "ok":
+            fail(f"deploy {MOE_NAME} failed: {code} {env}")
+        kv = env["kv_cache"]
+        if not kv["paged"] or kv["pool_blocks"] != 512 \
+                or kv["page_size"] != 16:
+            fail(f"the MoE deploy did not give the 512 x 16 pool: {kv}")
+        dep = server.manager.get(MOE_NAME)
+        wrapper, eng, svc = dep.wrapper, dep.wrapper.engine, dep.service
+        L, B, P = cfg.num_layers, eng.max_batch, eng.page_size
+        K = cfg.num_experts_per_tok
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for t in _leaves(wrapper.params))
+        log(f"  deployed {MOE_NAME} at every published width and "
+            f"{L} of 32 layers ({cfg.num_experts} experts of d_ff "
+            f"{cfg.d_ff}, top-{K}): {n_params / 1e9:.2f} B f32 parameters, "
+            f"in {time.perf_counter() - t0:.1f} s; device memory "
+            f"{torch.cuda.memory_allocated() / 1e9:.1f} GB; pool "
+            f"{kv['pool_blocks']} pages of {kv['page_size']} tokens, "
+            f"{kv['kv_bytes_per_token']} B per token")
+
+        greedy = [{"text": _text(n, i), "max_new_tokens": 48}
+                  for i, n in enumerate((4, 60, 300, 1500))]
+        sampled = {"text": _text(30, 9), "max_new_tokens": 24,
+                   "temperature": 0.8}
+        requests = [("v2", g) for g in greedy] + [("v1", sampled)]
+        prompts = [wrapper.prepare_generation(r[1])[0] for r in requests]
+        if len({len(p) for p in prompts}) != len(prompts):
+            fail("prompt lengths must differ: emitted tokens are keyed by "
+                 "them")
+        emitted, fmt = {}, wrapper.format_generation
+        wrapper.format_generation = lambda toks, n: (
+            emitted.setdefault(n, list(toks)), fmt(toks, n))[1]
+        kernels = (gmm, flash_attention, paged_decode_attention,
+                   decode_attention, rglru_scan, wkv_scan)
+        for k in kernels:
+            k.launches = 0
+        gmm.launches_at.clear()
+        s0, p0 = eng.steps_dispatched, eng.prefills_dispatched
+        outs, wall = predict_all(server.url, MOE_NAME, requests)
+        launches = {k.__name__: k.launches for k in kernels}
+        gmm_at = dict(gmm.launches_at)
+        steps = eng.steps_dispatched - s0
+        prefills = eng.prefills_dispatched - p0
+        stats = svc.stats()
+
+        for (route, inp), env in zip(requests, outs):
+            pred = env["predictions"][0]
+            log(f"  {route} prompt {pred['prompt_tokens']:4d} tokens, "
+                f"temperature {inp.get('temperature', 0.0)}: "
+                f"{pred['generated_tokens']} tokens")
+        want = {"gmm": 3 * L * (prefills + steps),
+                "flash_attention": L * prefills,
+                "paged_decode_attention": L * steps}
+        for k in kernels:
+            if launches[k.__name__] != want.get(k.__name__, 0):
+                fail(f"{k.__name__} launches {launches[k.__name__]} != "
+                     f"{want.get(k.__name__, 0)} ({prefills} prefills, "
+                     f"{steps} decode and fill steps, {L} layers)")
+        if steps == 0 or prefills == 0:
+            fail(f"{prefills} prefills and {steps} steps for "
+                 f"{len(requests)} requests")
+        if stats["max_batch_seen"] < 2:
+            fail(f"no decode batch was shared: {stats['max_batch_seen']}")
+        # gmm by shape (the wrapper's own count): each shape one phase 2c
+        # checked, and gate and up twice as many as down at each capacity
+        if sum(gmm_at.values()) != launches["gmm"]:
+            fail(f"gmm launches by shape {gmm_at} do not add up to "
+                 f"{launches['gmm']}")
+        for shape, n in sorted(gmm_at.items(), key=lambda i: i[0][1:]):
+            E_, C, d_, f_ = shape
+            if shape not in gmm_checked:
+                fail(f"gmm ran at {shape}, which phase 2c did not check")
+            if d_ == cfg.d_model and gmm_at.get((E_, C, f_, d_), 0) * 2 != n:
+                fail(f"gmm at capacity {C}: {n} gate/up launches, "
+                     f"{gmm_at.get((E_, C, f_, d_), 0)} down")
+            log(f"  gmm [{E_},{C},{d_}] @ [{E_},{d_},{f_}] "
+                f"({'small-C' if C <= 16 else 'tiled'} path): {n} launches")
+        toks = sum(e["predictions"][0]["generated_tokens"] for e in outs)
+        log(f"  {len(requests)} concurrent requests (4 v2 greedy, 1 v1 "
+            f"sampled), {toks} tokens in {wall:.2f} s "
+            f"({toks / wall:.1f} tokens/s end to end); mean batch "
+            f"{stats['mean_batch_size']}, max {stats['max_batch_seen']}; "
+            f"TTFT p50 {stats['ttft']['p50_ms']} ms, max "
+            f"{stats['ttft']['max_ms']} ms")
+        log(f"  launches: gmm {launches['gmm']} (3 x {L} layers x "
+            f"({prefills} prefills + {steps} decode and fill steps)), flash "
+            f"{launches['flash_attention']}, paged decode "
+            f"{launches['paged_decode_attention']}, contiguous decode 0")
+
+        # dropped assignments of each served prefill: a cold miss
+        # prefills the prompt's page-aligned part, padded to its bucket
+        # (pads after the real tokens); the rest goes through decode
+        # steps. Its routing is recorded in a replay of the same prefill
+        # call (the same tokens, bucket and length through the same
+        # deterministic kernels), after the timed traffic above
+        served, real, clean = {}, {}, []
+        for inp, prompt in zip(greedy + [sampled], prompts):
+            n = len(prompt)
+            real[n] = (n - 1) // P * P if n - 1 >= P else 0
+            if not real[n]:
+                log(f"  {n}-token prompt: no prefill (all {n} tokens "
+                    "through decode steps): 0 assignments dropped")
+                clean.append(inp)
+                continue
+            T = _bucket(real[n])
+            with RouteRecorder() as rec:
+                eng._prefill(prompt[:real[n]], T, real[n])
+            C = rec.calls[0][1]
+            served[n] = rec.by_layer(rec.calls, L)[:, 0]
+            sk = rec.by_layer(rec.calls, L, field=3)[:, 0]
+            total, lost = int(sk.sum()), int(sk[:, :real[n] * K].sum())
+            log(f"  {n}-token prompt: prefill of {real[n]} tokens in a {T} "
+                f"bucket, capacity {C} per expert: {total} of "
+                f"{L * T * K} assignments dropped over {L} layers, {lost} "
+                f"of them real tokens'")
+            if lost == 0:
+                clean.append(inp)
+            del rec, sk
+        if len(served) != prefills:
+            fail(f"{len(served)} prompts with a cold prefill for "
+                 f"{prefills} served prefills")
+
+        # greedy outputs do not depend on the co-batch: each request alone
+        # (a warm replay from its cached pages; the tail through the same
+        # decode steps, so it computes what its cold run did, drops or
+        # not), its routing recorded: slot 0, one position per step
+        hit0 = svc.stats()["prefix_cache"]["hit_tokens"]
+        alone_routes = {}
+        for inp, env, prompt in zip(greedy, outs, prompts):
+            n = len(prompt)
+            emitted.pop(n)
+            with RouteRecorder() as rec:
+                (alone,), _ = predict_all(server.url, MOE_NAME,
+                                          [("v2", inp)])
+            if alone["predictions"] != env["predictions"]:
+                fail("co-batched greedy output differs from the same "
+                     "request served alone")
+            if any(c[0] != B or bool(c[3].any()) for c in rec.calls):
+                fail("a warm replay ran a prefill, or a decode or fill step "
+                     "dropped an assignment")
+            alone_routes[n] = rec.by_layer(rec.calls, L)[:, :, 0]  # slot 0
+        del wrapper.format_generation
+        hits = svc.stats()["prefix_cache"]["hit_tokens"] - hit0
+        if hits < sum(real[len(p)] for p in prompts[:4]):
+            fail(f"the replays hit {hits} cached tokens, not every "
+                 "aligned prompt page")
+        log(f"  co-batched greedy outputs equal the same requests served "
+            f"alone, each a warm replay ({hits} prompt tokens from cached "
+            f"pages): warm equals cold")
+        check_pool(dep, MOE_NAME)
+
+        # the served tokens against a forward that drops nothing (capacity
+        # factor E / K: C >= T), for the requests whose prefill dropped no
+        # real token's assignment (decode steps never drop), through the
+        # positions where the served routing equals the forward's
+        dropless = build_model(cfg.replace(
+            moe_capacity_factor=cfg.num_experts / K))
+        held = total = 0
+        for inp, prompt in zip(greedy, prompts):
+            n = len(prompt)
+            if inp not in clean:
+                log(f"  {n}-token request not held to the forward: its "
+                    "prefill dropped real tokens' assignments")
+                continue
+            parts = [alone_routes[n]]
+            if real[n]:
+                parts.insert(0, served[n][:, :real[n]])
+            h, t = check_moe_against_forward(
+                wrapper, dropless, prompt, emitted[n],
+                torch.cat(parts, dim=1))
+            held, total = held + h, total + t
+        log(f"  held to the dropless forward: {held} of {total} greedy "
+            f"tokens of {sum(g in clean for g in greedy)} of {len(greedy)} "
+            "requests")
+        for inp in greedy[2:]:       # 301 and 1,501 tokens
+            check_moe_decode_logits(wrapper, dropless, inp, emitted)
+        del served, alone_routes
+        sync_free_paged_chunk(eng)
+        profile_decode(eng, f"{MOE_NAME} ({L} layers)")
+        eng.reset()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        dep = wrapper = eng = svc = fmt = dropless = None
+        code, _ = http(server.url, "DELETE", f"/v2/model/{MOE_NAME}")
+        if code != 200:
+            fail(f"undeploy {MOE_NAME} failed: {code}")
+    finally:
+        server.stop()
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() / 1e9
+    log(f"  {MOE_NAME}: peak device memory {peak:.1f} GB "
+        f"(torch.cuda.max_memory_allocated); after undeploy {left:.2f} GB "
+        "allocated")
+    if left > 1.0:
+        fail(f"undeploying {MOE_NAME} left {left:.1f} GB allocated")
+    return launches, gmm_at
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1406,6 +1940,8 @@ def main():
     card = phase_build()
     kernels = phase_kernels(cfg)
     kernels.update(phase_recurrent_kernels())
+    gmm_rows = phase_gmm_kernel()
+    kernels["gmm"] = gmm_rows[moe_gmm_shapes()[0]]    # a decode's gate/up
     launches, greedy_inputs, greedy_outs = phase_main_path(cfg)
     gc.collect()
     torch.cuda.empty_cache()
@@ -1427,6 +1963,11 @@ def main():
     launches["rglru_scan"] = hybrid["rglru_scan"]
     launches["wkv_scan"] = ssm["wkv_scan"]
     launches["flash_attention_hd256"] = hybrid["flash_attention"]
+    if torch.cuda.memory_allocated() > 1e9:
+        fail(f"{torch.cuda.memory_allocated() / 1e9:.1f} GB still allocated "
+             "before the MoE family")
+    moe, gmm_at = phase_moe(gmm_rows)
+    launches["gmm"] = moe["gmm"]
 
     sources = {
         "flash_attention": ("flash_attention",
@@ -1437,11 +1978,13 @@ def main():
                                    "src/repro/kernels/decode_attention.py:138"),
         "rglru_scan": ("rglru", "src/repro/kernels/rglru.py:52"),
         "wkv_scan": ("rwkv6", "src/repro/kernels/rwkv6.py:59"),
+        "gmm": ("gmm", "src/repro/kernels/gmm.py:37"),
     }
 
-    def row(name):
-        k = kernels[name]
-        return {"launches": launches[name], "max_abs_err": k["max_abs_err"],
+    def row(name, k=None, n=None):
+        k = k or kernels[name]
+        return {"launches": launches[name] if n is None else n,
+                "max_abs_err": k["max_abs_err"],
                 "ms": k["ms"], "plain_ms": k["plain_ms"],
                 "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
                 "library_ms": k["library_ms"], "library": k["library"],
@@ -1454,6 +1997,13 @@ def main():
                      "replaces": replaces, **row(name)})
     # the same kernel at hd 256, on the hybrid's path
     line[0]["hd256"] = row("flash_attention_hd256")
+    # gmm's row: all its launches on the MoE path, timed at a decode
+    # step's gate/up (the shape of most of them); then one row for each
+    # shape the path ran it at, with that shape's own launches, error and
+    # times
+    line[-1]["by_shape"] = [
+        row("gmm", gmm_rows[shape], n)
+        for shape, n in sorted(gmm_at.items(), key=lambda i: i[0][1:])]
     log("== phase 7: kernels")
     print(json.dumps({"kernels": line}), flush=True)
     print(card, flush=True)

@@ -1,5 +1,5 @@
 """Concrete wrappers + the populated exchange (counterpart of
-``repro/core/assets.py``; the text-generation assets of the dense,
+``repro/core/assets.py``; the text-generation assets of the dense, MoE,
 hybrid and SSM families so far).
 
 Builders default to the REDUCED config (same family, 2 layers) like the
@@ -25,8 +25,8 @@ from repro_torch.models import build_model
 from repro_torch.models.convert import check_like, to_torch_params
 from repro_torch.serving import GenerationEngine, GenerationResult
 
-_TYPE_BY_FAMILY = {"dense": "Text Generation", "hybrid": "Text Generation",
-                   "ssm": "Text Generation"}
+_TYPE_BY_FAMILY = {"dense": "Text Generation", "moe": "Text Generation",
+                   "hybrid": "Text Generation", "ssm": "Text Generation"}
 
 
 class _EngineWrapper(MAXModelWrapper):

@@ -28,6 +28,7 @@ ENTRY_POINTS: Dict[str, Tuple[str, ...]] = {
                          "paged_decode_attention_fwd"),
     "rglru": ("rglru_scan_fwd",),
     "rwkv6": ("wkv_scan_fwd",),
+    "gmm": ("gmm_fwd",),
 }
 SOURCES = tuple(ENTRY_POINTS)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

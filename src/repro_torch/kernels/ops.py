@@ -20,6 +20,7 @@ from repro_torch.kernels.decode_attention import (
 )
 from repro_torch.kernels.flash_attention import BLOCK
 from repro_torch.kernels.flash_attention import flash_attention as _flash
+from repro_torch.kernels.gmm import gmm as _gmm
 from repro_torch.kernels.rglru import rglru_scan as _rglru
 from repro_torch.kernels.rwkv6 import wkv_scan as _wkv
 
@@ -89,3 +90,12 @@ def wkv_scan(r, k, v, w, u, s0=None):
     return _wkv(r.contiguous(), k.contiguous(), v.contiguous(),
                 w.contiguous(), u.contiguous(),
                 None if s0 is None else s0.contiguous())
+
+
+def gmm(x, w):
+    """x [E, C, d]; w [E, d, f] -> [E, C, f].
+
+    The JAX package zero-pads C to its 128-row block and d, f to 256 / 128
+    (``ops.py:125-137``); the CUDA kernel bounds-checks every edge, so
+    nothing is padded here."""
+    return _gmm(x.contiguous(), w.contiguous())

@@ -4,9 +4,10 @@ The input is either the nested dict of numpy arrays the JAX package's
 ``build_model(cfg).init`` gives after ``tree_map(np.asarray, params)``,
 or the flat ``"layers/attn/wq"``-keyed arrays of a
 ``training/checkpoint.py`` ``.npz`` (the hybrid's ``"blocks/l0/rec/..."``
-and ``"tail/..."``, the SSM's ``"layers/tm/..."`` and
-``"layers/cm/..."`` alike). Both packages keep the same stacked layouts,
-so each leaf crosses over as it is; only the container changes. This module never imports jax: callers do the
+and ``"tail/..."``, the SSM's ``"layers/tm/..."`` and ``"layers/cm/..."``,
+MoE's ``"layers/moe/w_router|w_gate|w_up|w_down"`` alike). Both packages
+keep the same stacked layouts, so each leaf crosses over as it is; only
+the container changes. This module never imports jax: callers do the
 jax -> numpy step.
 """
 

@@ -5,12 +5,13 @@ parameter dict and tensors:
 
 - ``init(generator, device) -> params``
 - ``forward(params, batch) -> logits``
-- ``loss(params, batch) -> (scalar, metrics)``
+- ``loss(params, batch) -> (scalar, metrics)`` (cross entropy, plus the
+  router's aux losses for MoE, as the JAX package's)
 - ``prefill(params, batch, cache_len=None) -> (last_logits, cache)``
 - ``decode_step(params, cache, tokens, active=None) -> (logits, cache)``
 - ``init_cache(batch, seq_len, device, paged=None) -> cache``
 
-Every family the port serves (dense, hybrid, SSM) is decoder-only and
+Every family the port serves (dense, MoE, hybrid, SSM) is decoder-only and
 goes to ``models/transformer.py``, which branches by ``cfg.family`` as
 the JAX package's does (the JAX package's audio family goes to
 ``encdec``, not ported). The default types are the JAX package's: f32
@@ -65,9 +66,17 @@ def build_model(cfg: ModelConfig, param_dtype=F32,
         return transformer.forward(params, batch, cfg)
 
     def loss(params, batch):
-        ce = cross_entropy(forward(params, batch), batch["targets"], cfg,
+        logits, (lb, z) = transformer.forward(params, batch, cfg,
+                                             return_aux=True)
+        ce = cross_entropy(logits, batch["targets"], cfg,
                            batch.get("loss_mask"))
-        return ce, {"ce": ce, "loss": ce}
+        total, metrics = ce, {"ce": ce}
+        if cfg.is_moe:
+            total = ce + cfg.router_aux_loss_coef * lb \
+                + cfg.router_z_loss_coef * z
+            metrics.update(moe_lb=lb, moe_z=z)
+        metrics["loss"] = total
+        return total, metrics
 
     def prefill(params, batch, cache_len=None):
         return transformer.prefill(params, batch, cfg, cache_len=cache_len,

@@ -1,19 +1,21 @@
-"""Decoder-only transformer: the dense, hybrid (RecurrentGemma) and SSM
-(RWKV-6) families (counterpart of ``repro/models/transformer.py``).
+"""Decoder-only transformer: the dense, MoE, hybrid (RecurrentGemma) and
+SSM (RWKV-6) families (counterpart of ``repro/models/transformer.py``).
 
 Parameters keep the JAX package's stacked layout, so weights cross over
-leaf for leaf (``models/convert.py``): dense and SSM layers under
-``layers`` with ``[L, ...]`` leaves; the hybrid's (rec, rec, attn)
-pattern blocks under ``blocks/l{i}`` with ``[num_blocks, ...]`` leaves,
-plus its recurrent ``tail`` ``[num_tail, ...]``. JAX's ``lax.scan`` over a
+leaf for leaf (``models/convert.py``): dense, MoE and SSM layers under
+``layers`` with ``[L, ...]`` leaves (an MoE layer's feed-forward is
+``layers/moe/w_router|w_gate|w_up|w_down``, ``models/moe.py``); the
+hybrid's (rec, rec, attn) pattern blocks under ``blocks/l{i}`` with
+``[num_blocks, ...]`` leaves, plus its recurrent ``tail``
+``[num_tail, ...]``. JAX's ``lax.scan`` over a
 stack becomes a Python loop.
 
 - ``forward``      tokens [B, S] -> logits [B, S, V_padded] (f32)
 - ``prefill``      tokens [B, S] -> (last-token logits, cache)
 - ``decode_step``  one token per sequence against the cache
 
-Dense caches are ``{"lengths" [B] int32, "k"/"v" [L, B, S, KV, hd]}``:
-linear, or a ring buffer when the cache is exactly ``sliding_window``
+Dense and MoE caches are ``{"lengths" [B] int32, "k"/"v" [L, B, S, KV,
+hd]}``: linear, or a ring buffer when the cache is exactly ``sliding_window``
 long; or paged, ``{"lengths", "k_pool"/"v_pool" [L, N + 1, P, KV, hd],
 "block_table" [B, S / P]}``: a pool of N pages of P tokens shared by the
 slots through their block-table rows, plus one trash page (index N) that
@@ -35,7 +37,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import rglru, rwkv6
+from repro_torch.models import moe, rglru, rwkv6
 from repro_torch.models.attention import (
     blockwise_attention, cache_write, decode_attention,
     paged_cache_write, paged_decode_attention, ring_positions,
@@ -49,7 +51,7 @@ F32 = torch.float32
 ATTN_CHUNK = 512  # query-chunk size of the eager attention path
 
 
-FAMILIES = ("dense", "hybrid", "ssm")
+FAMILIES = ("dense", "moe", "hybrid", "ssm")
 # the batch axis of each cache leaf (the JAX engine finds it by shape,
 # ``engine.py:220-234``; a stack dimension of 1 would look the same)
 CACHE_BATCH_AXIS = {"lengths": 0, "k": 1, "v": 1, "attn_k": 1, "attn_v": 1,
@@ -58,7 +60,7 @@ CACHE_BATCH_AXIS = {"lengths": 0, "k": 1, "v": 1, "attn_k": 1, "attn_v": 1,
 
 
 def _check_family(cfg: ModelConfig):
-    if cfg.family not in FAMILIES or cfg.is_moe:
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"the PyTorch port serves the {', '.join(FAMILIES)} families so "
             f"far ({cfg.name!r} is {cfg.family!r})")
@@ -78,6 +80,9 @@ def _layer_init(cfg: ModelConfig, dtype, device, gen, kind: str, n: int):
     if kind == "attn":
         p["attn"] = attn_init(cfg, dtype, device, gen, lead=lead)
         p["mlp"] = mlp_init(d, cfg.d_ff, dtype, device, gen, lead=lead)
+    elif kind == "moe":
+        p["attn"] = attn_init(cfg, dtype, device, gen, lead=lead)
+        p["moe"] = moe.moe_init(cfg, dtype, device, gen, lead=lead)
     elif kind == "rec":
         p["rec"] = rglru.rglru_init(cfg, dtype, device, gen, lead=lead)
         p["mlp"] = mlp_init(d, cfg.d_ff, dtype, device, gen, lead=lead)
@@ -118,7 +123,8 @@ def init_params(cfg: ModelConfig, dtype=F32, *, device="cuda",
         params["layers"] = _layer_init(cfg, dtype, device, gen, "rwkv",
                                        cfg.num_layers)
     else:
-        params["layers"] = _layer_init(cfg, dtype, device, gen, "attn",
+        params["layers"] = _layer_init(cfg, dtype, device, gen,
+                                       "moe" if cfg.is_moe else "attn",
                                        cfg.num_layers)
     return params
 
@@ -162,9 +168,14 @@ def _attn_block_seq(lp, x, cfg, positions, window):
     return x + project_out(lp["attn"], o), k, v
 
 
-def _mlp_block(lp, x, cfg):
+def _ffn_block(lp, x, cfg):
+    """x [B, S, d] -> (x + the layer's feed-forward of x, its MoEAux or
+    None): the MLP, or the MoE layer over the B x S tokens of the call."""
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + mlp_apply(lp["mlp"], h)
+    if cfg.is_moe:
+        y, aux = moe.moe_apply(lp["moe"], h, cfg)
+        return x + y, aux
+    return x + mlp_apply(lp["mlp"], h), None
 
 
 def _rec_block_seq(lp, x, cfg, *, return_state=False):
@@ -215,31 +226,39 @@ def _hybrid_layers(params, cfg):
 # forward (scoring)
 # ===========================================================================
 
-def forward(params, batch, cfg: ModelConfig):
-    """batch: {"tokens": [B, S]} -> logits [B, S, V_padded] f32."""
+def forward(params, batch, cfg: ModelConfig, *, return_aux=False):
+    """batch: {"tokens": [B, S]} -> logits [B, S, V_padded] f32; with
+    ``return_aux``, (logits, (load balance loss, router z-loss)), the
+    losses averaged over the MoE layers (zeros for the other families), as
+    the JAX package's ``forward``."""
     _check_family(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = _embed_tokens(params, cfg, tokens)
     positions = torch.arange(S, device=tokens.device).expand(B, S)
+    lb = z = torch.zeros((), dtype=F32, device=tokens.device)
     if cfg.family == "ssm":
         for i in range(cfg.num_layers):
             x = _rwkv_layer_seq(layer_params(params, i), x, cfg)
-        return _lm_logits(params, cfg, x)
-    if cfg.family == "hybrid":
+    elif cfg.family == "hybrid":
         for kind, lp, _, _ in _hybrid_layers(params, cfg):
             if kind == "attn":
                 x, _, _ = _attn_block_seq(lp, x, cfg, positions,
                                           cfg.local_attn_window)
             else:
                 x = _rec_block_seq(lp, x, cfg)
-            x = _mlp_block(lp, x, cfg)
-        return _lm_logits(params, cfg, x)
-    for i in range(cfg.num_layers):
-        lp = layer_params(params, i)
-        x, _, _ = _attn_block_seq(lp, x, cfg, positions, cfg.sliding_window)
-        x = _mlp_block(lp, x, cfg)
-    return _lm_logits(params, cfg, x)
+            x = _ffn_block(lp, x, cfg)[0]
+    else:
+        for i in range(cfg.num_layers):
+            lp = layer_params(params, i)
+            x, _, _ = _attn_block_seq(lp, x, cfg, positions,
+                                      cfg.sliding_window)
+            x, aux = _ffn_block(lp, x, cfg)
+            if aux is not None:
+                lb, z = lb + aux.load_balance_loss, z + aux.z_loss
+        lb, z = lb / cfg.num_layers, z / cfg.num_layers
+    logits = _lm_logits(params, cfg, x)
+    return (logits, (lb, z)) if return_aux else logits
 
 
 # ===========================================================================
@@ -383,7 +402,7 @@ def prefill(params, batch, cfg: ModelConfig, *,
                 else:
                     cache["tail_h"][i] = st["h"]
                     cache["tail_conv"][i] = st["conv"]
-            x = _mlp_block(lp, x, cfg)
+            x = _ffn_block(lp, x, cfg)[0]
     else:
         W = cache["k"].shape[2]
         for i in range(cfg.num_layers):
@@ -392,7 +411,7 @@ def prefill(params, batch, cfg: ModelConfig, *,
                                       cfg.sliding_window)
             cache["k"][i] = _ring_pack(k, W).to(cache_dtype)
             cache["v"][i] = _ring_pack(v, W).to(cache_dtype)
-            x = _mlp_block(lp, x, cfg)
+            x = _ffn_block(lp, x, cfg)[0]
     cache["lengths"] = lengths
     last = torch.gather(
         x, 1, (lengths.long() - 1)[:, None, None].expand(B, 1, x.shape[-1]))
@@ -440,9 +459,11 @@ def _paged_attn_decode(lp, x_t, k_pool, v_pool, block_table, lengths, cfg):
     return x_t + project_out(lp["attn"], o[:, None])[:, 0]
 
 
-def _mlp_decode(lp, x_t, cfg):
-    h = rms_norm(x_t[:, None], lp["ln2"], cfg.norm_eps)
-    return x_t + mlp_apply(lp["mlp"], h)[:, 0]
+def _ffn_decode(lp, x_t, cfg):
+    """x_t [B, d]: ``_ffn_block`` on one token per slot (an MoE layer runs
+    over the B tokens of the step, ``_moe_decode`` of the JAX package; no
+    assignment drops at B <= 8)."""
+    return _ffn_block(lp, x_t[:, None], cfg)[0][:, 0]
 
 
 def _ssm_decode(params, cache, x, cfg):
@@ -486,7 +507,7 @@ def _hybrid_decode(params, cache, x, cfg):
             x = x + y
             cache[hk][where] = st["h"]
             cache[ck][where] = st["conv"]
-        x = _mlp_decode(lp, x, cfg)
+        x = _ffn_decode(lp, x, cfg)
     return x
 
 
@@ -516,7 +537,7 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, *, active=None):
             lp = layer_params(params, i)
             x = _paged_attn_decode(lp, x, cache["k_pool"][i],
                                    cache["v_pool"][i], table, lengths, cfg)
-            x = _mlp_decode(lp, x, cfg)
+            x = _ffn_decode(lp, x, cfg)
         cache["lengths"] = lengths + adv
         return _lm_logits(params, cfg, x), cache
     S = cache["k"].shape[2]
@@ -526,6 +547,6 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, *, active=None):
         lp = layer_params(params, i)
         x = _attn_decode(lp, x, cache["k"][i], cache["v"][i], lengths, cfg,
                          ring_window=ring_window)
-        x = _mlp_decode(lp, x, cfg)
+        x = _ffn_decode(lp, x, cfg)
     cache["lengths"] = lengths + adv
     return _lm_logits(params, cfg, x), cache

@@ -188,3 +188,61 @@ def test_recurrent_kernel_sources_and_wrappers():
         mod = (PORT / "kernels" / f"{name}.py").read_text()
         assert f"def {fn}_plain(" in mod and f"{fn}.launches += 1" in mod
         assert "cumsum" not in mod and "cumprod" not in mod
+
+
+def test_moe_modules_import_no_jax():
+    code = ("import sys; import repro_torch.models.moe, "
+            "repro_torch.kernels.gmm, repro_torch.configs.phi35_moe_42b_a66b, "
+            "repro_torch.configs.qwen3_moe_235b_a22b; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]; assert not bad, bad")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   timeout=120)
+    scanned = {p.relative_to(PORT).as_posix() for p in FILES if PORT in
+               p.parents}
+    assert {"models/moe.py", "kernels/gmm.py", "configs/phi35_moe_42b_a66b.py",
+            "configs/qwen3_moe_235b_a22b.py"} <= scanned
+
+
+@pytest.mark.parametrize("name", ["phi3.5-moe-42b-a6.6b",
+                                  "qwen3-moe-235b-a22b"])
+def test_moe_assets_default_to_cuda(name):
+    """The MoE models' and assets' entry points default to ``cuda`` and
+    raise without a GPU, like the other families'."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import reduce_for_smoke
+    from repro_torch.core.assets import EXCHANGE
+    from repro_torch.models.model import build_model
+    model = build_model(reduce_for_smoke(get_config(name)))
+    for fn in (model.init, model.init_cache):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    assert EXCHANGE.get(name).metadata.type == "Text Generation"
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    for call in (model.init, lambda: model.init_cache(1, 32),
+                 lambda: EXCHANGE.get(name).build(),
+                 lambda: EXCHANGE.get(name).build(paged=True,
+                                                  prefix_cache=True)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+
+
+def test_gmm_kernel_source_and_wrapper_use_no_library_gemm():
+    """``gmm.cu`` names its TPU kernel, targets sm_90a and calls no library
+    GEMM; the wrapper keeps the plain version and a launch counter and
+    launches only the hand-written kernel."""
+    from repro_torch.kernels import build
+    assert build.ENTRY_POINTS["gmm"] == ("gmm_fwd",)
+    src = (PORT / "kernels" / "csrc" / "gmm.cu").read_text()
+    assert "repro/kernels/gmm.py::gmm" in src and "sm_90a" in src
+    for lib in ("cublas", "cutlass", "#include <torch", "mma.sync", "wmma"):
+        assert lib not in src.lower(), lib
+    mod = (PORT / "kernels" / "gmm.py").read_text()
+    assert "def gmm_plain(" in mod and "gmm.launches += 1" in mod
+    # the count by shape sits beside the launch count, nowhere else
+    assert mod.count("gmm.launches_at[") == 1
+    assert "gmm.launches += 1\n    gmm.launches_at[(E, C, d, f)] += 1" in mod
+    wrapper = mod[mod.index("def gmm(x, w)"):]
+    for call in ("bmm", "matmul", "einsum", " @ "):
+        assert call not in wrapper, call
