@@ -8,10 +8,14 @@ Phases, in order; any failure exits non-zero:
    per source, started together) and print the card's name and power
    limit;
 2. hold each kernel against its plain PyTorch version on the card, at the
-   main path's full-width shapes and at small ones (2b: the recurrent
-   kernels and flash at head_dim 256, at the hybrid's and the SSM's
-   full-width prefill shapes; 2c: ``gmm`` at every shape phase 8 can give
-   it, a decode step's and each prefill bucket's, and at ragged ones);
+   main path's full-width shapes and at small ones, then sweep both decode
+   kernels over every split count (1-32 blocks per sequence and KV head)
+   with a cold and a warm L2, failing if ``decode_splits``' pick is more
+   than 25% slower than the best (2b: the recurrent kernels and flash at
+   head_dim 256, at the hybrid's and the SSM's full-width prefill shapes;
+   2c: ``gmm`` at every shape phase 8 can give it, a decode step's and
+   each prefill bucket's, and at ragged ones, its tensor-core path above
+   C = 16 no slower than ``torch.bmm``);
 3. drive the contiguous path: full-width ``qwen3-4b`` (random weights from
    a seed) built through the exchange on ``cuda`` and served by
    ``BatchedService`` to concurrent greedy requests and one sampled one;
@@ -69,9 +73,10 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense): device
-# memory bandwidth, and f32 (CUDA cores) / bf16 (tensor cores) rates.
+# memory bandwidth, and f32 (CUDA cores) / TF32 and bf16 (tensor cores)
+# rates.
 PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "tf32": 495e12, "bfloat16": 989e12}
 # tolerances of the repo's kernel tests (tests/test_kernels.py)
 TOL = {"float32": dict(atol=2e-5, rtol=2e-4),
        "bfloat16": dict(atol=2e-2, rtol=2e-2)}
@@ -90,12 +95,14 @@ def log(msg: str):
 # helpers
 # ---------------------------------------------------------------------------
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def cuda_ms(fn, iters: int = 20, warmup: int = 3, cold: bool = True) -> float:
     """Mean device time of ``fn()`` over ``iters`` calls, each timed by its
-    own CUDA events with a cold L2: a 256 MB buffer is rewritten before
-    each call (untimed), as the main path's weight stream evicts a layer's
-    inputs between its launches. A spin kernel first holds the device
-    while the host queues every call, so host time does not show."""
+    own CUDA events, by default with a cold L2: a 256 MB buffer is
+    rewritten before each call (untimed), as the main path's weight stream
+    evicts a layer's inputs between its launches (``cold=False``: back to
+    back, the inputs left in L2 by the call before). A spin kernel first
+    holds the device while the host queues every call, so host time does
+    not show."""
     import torch
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
@@ -105,7 +112,8 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     torch.cuda._sleep(2_000_000 * iters)       # ~1 ms per call at ~2 GHz
     for s, e in zip(starts, ends):
-        flush.zero_()
+        if cold:
+            flush.zero_()
         s.record()
         fn()
         e.record()
@@ -125,11 +133,11 @@ def check_close(name: str, got, want, dtype_name: str) -> float:
     return err
 
 
-def bound_ms(nbytes, flops):
+def bound_ms(nbytes, flops, peak=PEAK_FLOPS["float32"]):
     """(bound ms, "bytes" | "operations"): the least time on the H100's
-    published peaks (memory rate, f32 rate) for the bytes and operations
-    a call needs."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_FLOPS["float32"]
+    published peaks (memory rate; the f32 rate, or ``peak``) for the bytes
+    and operations a call needs."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
                                        else "operations")
 
@@ -265,9 +273,14 @@ def phase_kernels(cfg):
         if not torch.equal(poisoned, got):
             fail("decode kernel read cache entries past a length")
         log("  decode poisoned-past-length output identical: ok")
+    # group sizes 1-8 (the kernel gives each pair of warps a head, or two
+    # above 4: G = 1 and 3 leave warps idle, 6 pads a head)
     for (b, h, kv, s, d, qdt, lens) in (
             (3, 4, 2, 100, 64, torch.float32, (1, 63, 100)),
-            (2, 8, 1, 300, 128, torch.bfloat16, (257, 64))):
+            (2, 8, 1, 300, 128, torch.bfloat16, (257, 64)),
+            (2, 2, 2, 96, 128, torch.float32, (96, 50)),
+            (2, 3, 1, 100, 128, torch.float32, (37, 100)),
+            (2, 6, 1, 200, 64, torch.bfloat16, (1, 200))):
         q = randn(b, h, d, dtype=qdt)
         k = randn(b, s, kv, d, dtype=torch.bfloat16)
         v = randn(b, s, kv, d, dtype=torch.bfloat16)
@@ -327,6 +340,10 @@ def phase_kernels(cfg):
         shape=f"q [{B},{H},{hd}] f32, k/v [{B},{S},{KV},{hd}] bf16, "
               f"lengths {S} each")
     out["paged_decode_attention"] = check_paged(cfg, randn)
+    splits = sweep_decode_splits(cfg, randn)
+    for name in ("decode_attention", "paged_decode_attention"):
+        out[name]["split"] = splits["paged" if name.startswith("paged")
+                                    else "contiguous"]
     return out
 
 
@@ -407,7 +424,9 @@ def check_paged(cfg, randn):
             (3, 8, 2, 128, 40, 8, 16, torch.float32, (1, 65, 128)),
             (2, 4, 1, 64, 9, 64, 3, torch.bfloat16, (64, 130)),
             (2, 8, 2, 128, 6, 128, 2, torch.float32, (129, 256)),
-            (3, 4, 2, 64, 30, 5, 12, torch.float32, (0, 5, 59))):
+            (3, 4, 2, 64, 30, 5, 12, torch.float32, (0, 5, 59)),
+            (2, 6, 1, 128, 20, 16, 8, torch.float32, (0, 100)),
+            (3, 3, 3, 64, 12, 8, 4, torch.bfloat16, (31, 1, 17))):
         args = paged_inputs(randn, b, h, kv, d, n, p, nblk, lens, qdt)
         name = "float32" if qdt == torch.float32 else "bfloat16"
         check_close(f"paged B={b} H={h} KV={kv} hd={d} pool {n}x{p} "
@@ -468,6 +487,81 @@ def check_paged(cfg, randn):
                         "scaled_dot_product_attention",
                 shape=f"q [{B},{H},{hd}] f32, pools [{N},{P},{KV},{hd}] bf16, "
                       f"shuffled table [{B},{nb}], lengths 2048 each")
+
+
+# the split decode_splits picks may be at most this much slower than the
+# best one the sweep finds, at the main path's shape
+SPLIT_SLACK = 1.25
+
+
+def sweep_decode_splits(cfg, randn):
+    """Both decode kernels at every split count the grid allows (1 to 32
+    blocks per (b, kv_head)), at B=4 over the HTTP path's pool with lengths
+    2048 each and with the served contexts (100, 500, 1000, 1500), each
+    checked against the plain version and timed with a cold and a warm L2;
+    fails if, at lengths 2048 and a cold L2, the split ``decode_splits``
+    picks is more than 25% slower than the best one. Calls the wrappers'
+    launch helpers at each split (the wrappers pick their own), so no
+    launch here is counted."""
+    import torch
+    from repro_torch.kernels import decode_attention as da
+
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    B, N, P, nb = 4, 512, 16, 2048 // 16
+    S = nb * P
+    dev = torch.device("cuda")
+    chosen = da.decode_splits(
+        B, KV, S, torch.cuda.get_device_properties(dev).multi_processor_count)
+    tiles = -(-S // da.TILE)
+    pers = sorted({-(-tiles // n) for n in range(1, 33)}
+                  | {chosen[0] // da.TILE}, reverse=True)
+    kinds = ("paged", "contiguous")
+    times = {}
+    for lens in ((S,) * B, (100, 500, 1000, 1500)):
+        q, kp, vp, table, lengths = paged_inputs(randn, B, H, KV, hd, N, P,
+                                                 nb, lens)
+        rows = table.long().clamp(0, N - 1)
+        kc = kp[rows].reshape(B, S, KV, hd).contiguous()
+        vc = vp[rows].reshape(B, S, KV, hd).contiguous()
+        want = da.paged_decode_attention_plain(q, kp, vp, table, lengths)
+        out = torch.empty_like(q)
+        for per in pers:
+            split_len, nsplit = per * da.TILE, -(-tiles // per)
+            calls = {
+                "paged": lambda: da._launch_paged(
+                    q, kp, vp, table, lengths, out, split_len, nsplit),
+                "contiguous": lambda: da._launch_contiguous(
+                    q, kc, vc, lengths, out, split_len, nsplit)}
+            line = []
+            for name in kinds:
+                call = calls[name]
+                out.fill_(float("nan"))
+                call()
+                if not torch.allclose(out, want, **TOL["float32"]):
+                    fail(f"{name} decode at split {split_len} x {nsplit}, "
+                         f"lengths {lens}, disagrees with its plain version")
+                cold = cuda_ms(call, iters=30)
+                warm = cuda_ms(call, iters=30, cold=False)
+                times[name, lens, nsplit] = cold
+                line.append(f"{name} {cold:.4f} / {warm:.4f}")
+            mark = "  <- decode_splits" if (split_len, nsplit) == chosen else ""
+            log(f"  split sweep lengths={lens} nsplit={nsplit:2d} "
+                f"split_len={split_len:4d}, ms cold / warm L2: "
+                f"{' | '.join(line)}{mark}")
+    best = {}
+    for name in kinds:
+        at = {n: t for (k, lens, n), t in times.items()
+              if k == name and lens == (S,) * B}
+        n_best = min(at, key=at.get)
+        best[name] = dict(nsplit=chosen[1], best_nsplit=n_best,
+                          ms=at[chosen[1]], best_ms=at[n_best])
+        log(f"  {name} decode, lengths {S} x {B}, cold L2: decode_splits' "
+            f"nsplit {chosen[1]} {at[chosen[1]]:.4f} ms, best nsplit "
+            f"{n_best} {at[n_best]:.4f} ms")
+        if at[chosen[1]] > SPLIT_SLACK * at[n_best]:
+            fail(f"{name} decode: decode_splits' split is more than "
+                 f"{SPLIT_SLACK - 1:.0%} slower than the best one swept")
+    return best
 
 
 def check_scaled(name, got, want, rel):
@@ -675,12 +769,31 @@ def moe_gmm_shapes():
     return [(E, C, d, f) for C in caps] + [(E, C, f, d) for C in caps]
 
 
+def gmm_bound_ms(E, C, d, f):
+    """(bound ms, "bytes" | "operations", the SIMT bound ms) of ``gmm``.
+
+    The card can do the f32-accurate product in 3xTF32 on its tensor cores
+    (three TF32 products per f32 one, the kernel's route above C = 16) at
+    495 / 3 TFLOP/s, faster than on the CUDA cores at 67: so the bound is
+    the larger of the bytes at the memory rate and 3 x 2 C d f at the TF32
+    peak. The bound on the CUDA cores alone (2 C d f at 67 TFLOP/s) is
+    kept beside it, the one PR 16 reported."""
+    nbytes = 4 * (E * C * d + E * d * f + E * C * f)
+    flops = 2 * E * C * d * f
+    bound, bound_by = bound_ms(nbytes, 3 * flops, PEAK_FLOPS["tf32"])
+    return bound, bound_by, bound_ms(nbytes, flops)[0]
+
+
 def phase_gmm_kernel():
     """``gmm`` against its plain version at every shape phase 8's path can
     give it (``moe_gmm_shapes``: both kernel paths, C <= 16 and C > 16)
-    and at ragged ones (with and without 16-byte rows); then each path
-    shape timed with a cold L2 beside the plain version and ``torch.bmm``
-    (TF32 off). Returns {shape: row}, each row with its own shape's
+    and at ragged ones (with and without 16-byte rows, at each row tile's
+    edges C = 17, 33, 65, 129), and with NaN and Inf among the inputs;
+    then at each path shape the kernel's and
+    the plain version's errors against the product in f64, and the
+    kernel timed with a cold L2 beside the plain version and
+    ``torch.bmm`` (TF32 off), which the tensor-core path (C > 16) must not
+    be slower than. Returns {shape: row}, each row with its own shape's
     error."""
     import torch
     from repro_torch.kernels import ops
@@ -697,13 +810,44 @@ def phase_gmm_kernel():
 
     path = moe_gmm_shapes()
     ragged = ((3, 60, 100, 300), (2, 37, 99, 203), (3, 5, 99, 77),
-              (2, 13, 64, 130), (2, 13, 64, 128), (1, 17, 1, 3))
+              (2, 13, 64, 130), (2, 13, 64, 128), (1, 17, 1, 3),
+              (2, 17, 96, 260), (2, 17, 97, 261), (2, 33, 128, 132),
+              (2, 33, 130, 131), (2, 65, 256, 384), (2, 65, 255, 383),
+              (2, 129, 512, 136), (2, 129, 513, 135))
     errs = {}
     for E, C, d, f in (*path, *ragged):
         x, w = inputs(E, C, d, f)
         errs[(E, C, d, f)] = check_close(
             f"gmm [{E},{C},{d}] @ [{E},{d},{f}] f32", ops.gmm(x, w),
             gmm_plain(x, w), "float32")
+        del x, w
+    # NaN (with payloads that the TF32 rounding's integer add could carry
+    # into the exponent or sign) and Inf in x and w, on both paths: every
+    # output the plain version has NaN is NaN, the non-finite outputs are
+    # the plain version's, and the finite ones agree within the tolerance
+    import numpy as np
+    bits = np.array([0x7FFFF000, 0xFFFFF001, 0x7F800001, 0x7FC00000],
+                    dtype=np.uint32)
+    nans = torch.from_numpy(bits.view(np.float32)).to(dev)
+    for E, C, d, f in ((2, 13, 64, 128), (2, 33, 128, 132),
+                       (2, 65, 255, 383)):
+        x, w = inputs(E, C, d, f)
+        x[0, 3, 5], x[1, C - 1, d - 1] = nans[0], nans[1]
+        w[0, 7, 9], w[1, d // 2, f - 1] = nans[2], nans[3]
+        x[0, 10, 0], w[1, 0, 2] = float("inf"), float("-inf")
+        got, want = ops.gmm(x, w), gmm_plain(x, w)
+        fin = torch.isfinite(want)
+        ok = (bool(got.isnan()[want.isnan()].all())
+              and torch.equal(torch.isfinite(got), fin)
+              and torch.allclose(got[fin], want[fin], **TOL["float32"]))
+        log(f"  gmm [{E},{C},{d}] @ [{E},{d},{f}] with NaN and Inf inputs: "
+            f"{int(want.isnan().sum())} NaN and {int(want.isinf().sum())} "
+            f"Inf outputs in the plain version, {int(got.isnan().sum())} "
+            f"and {int(got.isinf().sum())} in the kernel's: "
+            f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail("gmm lost a NaN or an Inf, or made one, against its plain "
+                 "version")
         del x, w
     # refusals before any launch
     n0 = gmm.launches
@@ -724,27 +868,42 @@ def phase_gmm_kernel():
     log("  gmm refuses other dtypes, shapes, layouts and devices with "
         "ValueError: ok")
 
-    rows = {}
+    rows, slower = {}, []
     for E, C, d, f in path:
         x, w = inputs(E, C, d, f)
-        bound, bound_by = bound_ms(4 * (E * C * d + E * d * f + E * C * f),
-                                   2 * E * C * d * f)
+        # both against the product in f64: how far each is from the exact
+        # result, where check_close above measured them against each other
+        exact = torch.bmm(x.double(), w.double())
+        f64_err = {name: (out.double() - exact).abs().max().item()
+                   for name, out in (("kernel", gmm(x, w)),
+                                     ("plain", gmm_plain(x, w)))}
+        del exact
+        log(f"  gmm [{E},{C},{d}] @ [{E},{d},{f}] against f64: kernel "
+            f"{f64_err['kernel']:.3e}, plain {f64_err['plain']:.3e}")
+        bound, bound_by, simt = gmm_bound_ms(E, C, d, f)
         ms = cuda_ms(lambda: gmm(x, w))
         plain_ms = cuda_ms(lambda: gmm_plain(x, w))
         lib_ms = cuda_ms(lambda: torch.bmm(x, w))
         log(f"  gmm [{E},{C},{d}] @ [{E},{d},{f}] f32 "
-            f"({'small-C' if C <= 16 else 'tiled'} path): kernel "
+            f"({'small-C' if C <= 16 else 'tensor-core'} path): kernel "
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.bmm {lib_ms:.4f} "
             f"ms, bound {bound:.4f} ms ({bound_by}; "
-            f"{2 * E * C * d * f / 1e9:.1f} GFLOP, "
-            f"{4 * E * d * f / 1e9:.2f} GB of weights)")
+            f"{2 * E * C * d * f / 1e9:.1f} GFLOP, x3 in TF32 at 495 "
+            f"TFLOP/s; {4 * E * d * f / 1e9:.2f} GB of weights), CUDA-core "
+            f"bound {simt:.4f} ms")
+        if C > 16 and ms > lib_ms:
+            slower.append((E, C, d, f))
         rows[(E, C, d, f)] = dict(
             max_abs_err=errs[(E, C, d, f)], ms=ms, plain_ms=plain_ms,
             bound_ms=bound, bound_by=bound_by, library_ms=lib_ms,
-            library="torch.bmm (f32, TF32 off)",
+            library="torch.bmm (f32, TF32 off)", simt_bound_ms=simt,
+            f64_err=f64_err,
             shape=f"x [{E},{C},{d}] f32, w [{E},{d},{f}]")
         del x, w
     torch.cuda.empty_cache()
+    if slower:
+        fail(f"gmm's tensor-core path is slower than torch.bmm at {slower}")
+    log("  gmm above C = 16 is faster than torch.bmm at every shape: ok")
     return rows
 
 
@@ -1795,7 +1954,7 @@ def phase_moe(gmm_checked):
                 fail(f"gmm at capacity {C}: {n} gate/up launches, "
                      f"{gmm_at.get((E_, C, f_, d_), 0)} down")
             log(f"  gmm [{E_},{C},{d_}] @ [{E_},{d_},{f_}] "
-                f"({'small-C' if C <= 16 else 'tiled'} path): {n} launches")
+                f"({'small-C' if C <= 16 else 'tensor-core'} path): {n} launches")
         toks = sum(e["predictions"][0]["generated_tokens"] for e in outs)
         log(f"  {len(requests)} concurrent requests (4 v2 greedy, 1 v1 "
             f"sampled), {toks} tokens in {wall:.2f} s "
@@ -1988,7 +2147,12 @@ def main():
                 "ms": k["ms"], "plain_ms": k["plain_ms"],
                 "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
                 "library_ms": k["library_ms"], "library": k["library"],
-                "timed_at": k["shape"]}
+                "timed_at": k["shape"],
+                # gmm: the bound on the CUDA cores alone and the errors
+                # against f64; decode: the split decode_splits picked
+                # beside the best one swept
+                **{key: k[key] for key in ("simt_bound_ms", "f64_err",
+                                           "split") if key in k}}
 
     line = []
     for name, (src, replaces) in sources.items():

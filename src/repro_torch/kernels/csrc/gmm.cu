@@ -3,32 +3,59 @@
 // Replaces the TPU kernel repro/kernels/gmm.py::gmm (body _gmm_kernel).
 // Same contract:
 //   x [E, C, d] f32, w [E, d, f] f32 -> out [E, C, f] f32,
-//   out[e] = x[e] @ w[e], summed in f32 on the CUDA cores (no TF32).
+//   out[e] = x[e] @ w[e], to f32 accuracy (no one-pass TF32 product).
 // Any E, C, d and f are taken as they are: every edge is bounds-checked
 // where the JAX wrapper zero-pads C to 128 and d, f to 256 / 128.
 //
-// What bounds it on an H100, and the two paths. C is the capacity of an
-// expert: 8 in a decode step (at up to 8 slots), 320 in a 2,048-token
-// prefill at Phi-3.5-MoE's widths (E = 16, top-2, factor 1.25).
-// - C <= 16, bound by the weight stream: at [16, 8, 4096] @ [16, 4096,
-//   6400] w is 1.68 GB and x 2 MB (0.50 ms at 3.35 TB/s). gmm_small_c
-//   reads each weight element once per call. A block owns 128 output
+// C is the capacity of an expert: 8 in a decode step (at up to 8 slots),
+// 24-320 in a prefill of 128-2,048 tokens at Phi-3.5-MoE's widths (E = 16,
+// top-2, factor 1.25). Per call the weights are 1.68 GB (0.50 ms at 3.35
+// TB/s) and the product is 2 C d f per expert. Two paths:
+// - C <= 16, bound by the weight stream: gmm_small_c reads each weight
+//   element once per call, on the CUDA cores. A block owns 128 output
 //   columns of one expert; its 8 warps split the contraction rows, each
 //   lane loading 16 bytes of a weight row (512 contiguous bytes a warp),
 //   eight rows of loads issued before their FMAs; each warp stages x's
 //   matching rows in shared memory (read back as broadcasts), and the 8
 //   partial sums meet in shared memory at the end.
-// - C > 16, bound by operations (2 C d f per expert: 268 GFLOP, 4.0 ms at
-//   67 TFLOP/s, for the prefill's gate). gmm_tiled is a tiled SIMT GEMM:
-//   a 128 x 128 output tile per block of 256 threads, 8 x 8 outputs per
-//   thread in registers, 16-deep slices of x (stored transposed, rows
-//   padded against bank conflicts) and w double-buffered in shared memory
-//   and read back as float4, two blocks per SM (128 registers at most).
-//   Tensor cores (TF32 or bf16 weights) would change the reference
-//   numerics and wait.
-// Both paths sum every output element in one fixed order whatever row of
-// the expert's capacity it sits in and whatever the other rows hold, so a
-// token's result does not depend on its co-batch.
+// - C > 16, gmm_tc, on the tensor cores in 3xTF32. Each element v of x
+//   and w is split as it is read for a fragment into hi = tf32(v), rounded
+//   to nearest, ties away (cvt.rna's rounding), and lo = v - hi, which the
+//   MMA reads as TF32 rounded toward zero (split_tf32's note), and each
+//   product is a_lo b_hi + a_hi b_lo + a_hi b_hi: three
+//   mma.sync.m16n8k8 TF32 issues with f32 accumulation, the small terms
+//   first. The dropped a_lo b_lo is below f32 rounding. Its bound is the
+//   larger of the weight bytes at 3.35 TB/s and 3 x 2 C d f at the 495
+//   TFLOP/s TF32 peak: bytes up to C ~ 100 at these widths, operations
+//   above. The design:
+//   * Row tiles sized to C: BM = 32 rows up to C = 32, else 64, and a warp
+//     skips its m16 row tiles wholly past C (C = 24 computes 32 rows, 40
+//     48, 80 80). The row tiles of one column tile are neighbours in the
+//     grid (blockIdx.x), so a weight tile that several of them read comes
+//     from device memory once and from L2 after.
+//   * A ring of 4 stages of 32-deep k slices of x and w in dynamic shared
+//     memory, filled by cp.async (16-byte copies with VEC, 4-byte ones for
+//     ragged rows): three slices in flight while one is multiplied. Rows
+//     of the staged x are padded to 36 floats and of w to 136, so the
+//     fragment loads (LDS.32: ldmatrix is for 16-bit types) hit 32
+//     different banks. Past C, d or f a copy has src-size 0 (zeros, never
+//     read) and its source address points inside the expert's array.
+//   * 4 warps, each a 32 x 32 (BM = 32) or 32 x 64 (BM = 64) tile of m16n8
+//     accumulators; each slice accumulates on the tensor cores from zero
+//     and is added into the f32 sum (mma_slice, gmm_tc's note).
+//   Accuracy: against the product in f64 this path is closer than the
+//   plain version's f32 product (chip_smoke.py phase 2c prints both at
+//   every served shape): each slice's 12 MMAs truncate only a 32-term
+//   partial sum, and the slices meet in rounded f32 adds.
+//   mma.sync and not wgmma: wgmma takes a TF32 B only K-major in shared
+//   memory, and w[e] is [d, f] with f contiguous (MN-major); transposing it
+//   while staging is left for later.
+// Both paths sum every output element in one fixed order, the k slices in
+// turn and inside an MMA in the hardware's order, whatever row of the
+// expert's capacity it sits in and whatever the other rows hold, so a
+// token's result does not depend on its co-batch. It depends on C only
+// through the path: C <= 16 and C > 16 sum differently (the row tile does
+// not change the order).
 //
 // Interface: plain C, launched on the caller's stream; returns the CUDA
 // error code after the launch (0 on success), or -1 for bad sizes.
@@ -152,121 +179,257 @@ gmm_small_c(const float* __restrict__ x, const float* __restrict__ w,
 }
 
 // ---------------------------------------------------------------------------
-// C > 16: tiled SIMT GEMM
+// C > 16: tensor cores in 3xTF32
 // ---------------------------------------------------------------------------
 
-constexpr int BM = 128, BN = 128, BK = 16, NT = 256;
-constexpr int LP = BK / 8;    // load passes per tile: 8 rows of k each
+constexpr int TBN = 128;      // output columns per block
+constexpr int TBK = 32;       // k slice per stage
+constexpr int AS = TBK + 4;   // staged x row (floats): banks 4g + t
+constexpr int BS = TBN + 8;   // staged w row (floats): banks 8t + g
 
-template <bool VEC>
-__global__ void __launch_bounds__(NT, 2)
-gmm_tiled(const float* __restrict__ x, const float* __restrict__ w,
-          float* __restrict__ out, int C, int d, int f) {
-  __shared__ __align__(16) float As[2][BK][BM + 4];
-  __shared__ __align__(16) float Bs[2][BK][BN];
-  const int e = blockIdx.z, m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+constexpr int TNT = 128;      // threads per block: 4 warps
+constexpr int STAGES = 4;     // k slices in the ring
+
+// BM = 32: 1 x 4 warps of 32 x 32; BM = 64: 2 x 2 warps of 32 x 64
+template <int BM>
+constexpr int tile_smem() {
+  return STAGES * (BM * AS + TBK * BS) * (int)sizeof(float);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// a cp.async of BYTES (16 or 4); nothing is read when !ok, and the
+// destination is zero-filled
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const float* src, bool ok) {
+  const int n = ok ? BYTES : 0;
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_u32(dst)), "l"(src), "r"(n));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                     smem_u32(dst)), "l"(src), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// v ~ hi + lo. hi is v rounded to TF32, to nearest with ties away from
+// zero: what cvt.rna.tf32.f32 gives, done here with an integer add and
+// mask (a conversion instruction issues at a fraction of the integer rate,
+// and the split runs for every element of every fragment). lo = v - hi is
+// exact in f32 and goes to the MMA as it is: a .tf32 operand is read from
+// its top 19 bits, so lo is rounded toward zero there, an error of at most
+// 2^-21 |v| (the f32 product's rounding is 2^-24 per term; phase 2c holds
+// both to f64). Non-finite inputs: the add can carry a NaN's payload into
+// its exponent or sign (hi may come out 0, Inf or finite), but v - hi is
+// then the canonical NaN, so lo keeps the NaN and every output it reaches
+// is NaN; an Inf gives hi = Inf and lo = Inf - Inf = NaN, so an output an
+// Inf reaches is NaN where the f32 product has Inf (or NaN). An output is
+// non-finite where the f32 product's is, and NaN where a NaN reached it
+// (a finite v within half a TF32 step of the f32 maximum rounds to hi =
+// Inf, as with cvt.rna).
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(v);
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+// c += a b for one m16n8k8 tile, TF32 inputs, f32 accumulation
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// One staged k slice on the tensor cores, added into `part`, for the
+// warp's first MI m16 row tiles (those that hold a row below C): every
+// product a b as a_lo b_hi + a_hi b_lo + a_hi b_hi, the small terms first.
+template <int MI, int NJ>
+__device__ __forceinline__ void mma_slice(const float* as, const float* bs,
+                                          float (&part)[2][NJ][4], int g,
+                                          int t) {
+#pragma unroll
+  for (int kk = 0; kk < TBK; kk += 8) {
+    uint32_t ahi[MI][4], alo[MI][4];
+#pragma unroll
+    for (int i = 0; i < MI; ++i) {           // rows g and g + 8, cols t, t + 4
+      const float* a = as + (i * 16 + g) * AS + kk + t;
+      split_tf32(a[0], ahi[i][0], alo[i][0]);
+      split_tf32(a[8 * AS], ahi[i][1], alo[i][1]);
+      split_tf32(a[4], ahi[i][2], alo[i][2]);
+      split_tf32(a[8 * AS + 4], ahi[i][3], alo[i][3]);
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {           // k rows t, t + 4; column g
+      const float* bp = bs + (kk + t) * BS + j * 8 + g;
+      uint32_t bhi[2], blo[2];
+      split_tf32(bp[0], bhi[0], blo[0]);
+      split_tf32(bp[4 * BS], bhi[1], blo[1]);
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+        mma_tf32(part[i][j], alo[i], bhi);
+        mma_tf32(part[i][j], ahi[i], blo);
+        mma_tf32(part[i][j], ahi[i], bhi);
+      }
+    }
+  }
+}
+
+template <int BM, bool VEC>
+__global__ void __launch_bounds__(TNT, 2)
+gmm_tc(const float* __restrict__ x, const float* __restrict__ w,
+       float* __restrict__ out, int C, int d, int f) {
+  constexpr int WARPS_N = TNT / 32 / (BM / 32);
+  constexpr int WN = TBN / WARPS_N;          // warp tile columns
+  constexpr int NJ = WN / 8;                 // n8 tiles per warp
+  constexpr int A_STAGE = BM * AS, B_STAGE = TBK * BS;
+  extern __shared__ __align__(16) float smem[];
+  float* As = smem;                          // [STAGES][BM][AS]
+  float* Bs = smem + STAGES * A_STAGE;       // [STAGES][TBK][BS]
+
+  const int e = blockIdx.z, m0 = blockIdx.x * BM, n0 = blockIdx.y * TBN;
   x += (size_t)e * C * d;
   w += (size_t)e * d * f;
   out += (size_t)e * C * f;
-  const int tid = threadIdx.x;
-  // per load pass (8 rows of the tile's k): 4 k's of one x row, 4
-  // columns of one w row
-  const int a_row = tid >> 1, a_k = (tid & 1) * 4;
-  const int b_k = tid >> 5, b_col = (tid & 31) * 4;
-  const int ty = tid >> 4, tx = tid & 15;            // 16 x 16 threads
-  float ra[LP][4], rb[LP][4];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
+  const int g = lane >> 2, t = lane & 3;     // fragment row / column
 
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int p = 0; p < LP; ++p) {
-      const int m = m0 + a_row, ka = k0 + a_k + 8 * p;
-      if (VEC) {
-        const float4 v = (m < C && ka < d)
-            ? __ldg(reinterpret_cast<const float4*>(x + (size_t)m * d + ka))
-            : make_float4(0.f, 0.f, 0.f, 0.f);
-        ra[p][0] = v.x; ra[p][1] = v.y; ra[p][2] = v.z; ra[p][3] = v.w;
-      } else {
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          ra[p][i] = (m < C && ka + i < d)
-                         ? __ldg(x + (size_t)m * d + ka + i) : 0.f;
-      }
-      const int kb = k0 + b_k + 8 * p, n = n0 + b_col;
-      if (VEC) {
-        const float4 v = (kb < d && n < f)
-            ? __ldg(reinterpret_cast<const float4*>(w + (size_t)kb * f + n))
-            : make_float4(0.f, 0.f, 0.f, 0.f);
-        rb[p][0] = v.x; rb[p][1] = v.y; rb[p][2] = v.z; rb[p][3] = v.w;
-      } else {
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          rb[p][i] = (kb < d && n + i < f)
-                         ? __ldg(w + (size_t)kb * f + n + i) : 0.f;
-      }
+  // x[m0 : m0 + BM, k0 : k0 + 32] and w[k0 : k0 + 32, n0 : n0 + 128]
+  // into stage `slot`; zeros past C, d and f
+  auto load = [&](int slot, int k0) {
+    float* as = As + slot * A_STAGE;
+    float* bs = Bs + slot * B_STAGE;
+    constexpr int V = VEC ? 4 : 1;           // floats per copy
+    for (int c = tid; c < BM * (TBK / V); c += TNT) {
+      const int r = c / (TBK / V), kc = c % (TBK / V) * V;
+      const int m = m0 + r, k = k0 + kc;
+      const bool ok = m < C && k < d;
+      cp_async<4 * V>(as + r * AS + kc, ok ? x + (size_t)m * d + k : x, ok);
     }
-  };
-  auto store = [&](int buf) {
-#pragma unroll
-    for (int p = 0; p < LP; ++p) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) As[buf][a_k + 8 * p + i][a_row] = ra[p][i];
-      *reinterpret_cast<float4*>(&Bs[buf][b_k + 8 * p][b_col]) =
-          make_float4(rb[p][0], rb[p][1], rb[p][2], rb[p][3]);
+    for (int c = tid; c < TBK * (TBN / V); c += TNT) {
+      const int r = c / (TBN / V), nc = c % (TBN / V) * V;
+      const int k = k0 + r, n = n0 + nc;
+      const bool ok = k < d && n < f;
+      cp_async<4 * V>(bs + r * BS + nc, ok ? w + (size_t)k * f + n : w, ok);
     }
   };
 
-  float acc[8][8];
+  // acc: the f32 sum of the slices so far; part: this slice's, on the
+  // tensor cores from zero. An MMA adds into its accumulator with
+  // truncation, a biased error of up to an ulp of the accumulator each
+  // time: over a whole contraction (512-800 MMAs on one sum at these
+  // widths) it breaks the f32 tolerance. A slice is 12 MMAs on a partial
+  // sum of 32 terms, and the slices meet in rounded f32 adds.
+  float acc[2][NJ][4], part[2][NJ][4];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
+  // m16 row tiles of this warp that hold a row below C (warp-uniform)
+  const int live = min(2, max(0, (C - m0 - wm * 32 + 15) / 16));
 
-  const int nk = (d + BK - 1) / BK;
-  load(0);
-  store(0);
-  __syncthreads();
-  for (int t = 0; t < nk; ++t) {
-    const int buf = t & 1;
-    if (t + 1 < nk) load((t + 1) * BK);   // in flight during the FMAs
+  const int nk = (d + TBK - 1) / TBK;
 #pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[buf][kk][ty * 4]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&As[buf][kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[buf][kk][tx * 4]);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(&Bs[buf][kk][64 + tx * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    // the other buffer was last read before the previous barrier
-    if (t + 1 < nk) store(buf ^ 1);
-    __syncthreads();
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) load(s, s * TBK);
+    cp_async_commit();
   }
-
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<STAGES - 2>();   // slice kt has landed (this thread's part)
+    __syncthreads();               // ... every thread's; slice kt - 1 is done
+    if (kt + STAGES - 1 < nk) load((kt + STAGES - 1) % STAGES,
+                                   (kt + STAGES - 1) * TBK);
+    cp_async_commit();
+    if (live == 0) continue;
+    const float* as = As + (kt % STAGES) * A_STAGE + wm * 32 * AS;
+    const float* bs = Bs + (kt % STAGES) * B_STAGE + wn * WN;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    if (m >= C) continue;
-    float* orow = out + (size_t)m * f;
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) part[i][j][r] = 0.f;
+    if (live == 2)
+      mma_slice<2, NJ>(as, bs, part, g, t);
+    else
+      mma_slice<1, NJ>(as, bs, part, g, t);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[i][j][r] += part[i][j][r];
+  }
+  cp_async_wait<0>();
+
+  // accumulator (i, j): rows g and g + 8 of the i-th m16, columns 2t, 2t + 1
+  // of the j-th n8
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int n = n0 + h * 64 + tx * 4;
-      if (VEC && n < f) {
-        *reinterpret_cast<float4*>(orow + n) =
-            make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
-                        acc[i][4 * h + 3]);
-      } else if (!VEC) {
+      const int m = m0 + wm * 32 + i * 16 + g + 8 * h;
+      if (m >= C) continue;
+      float* orow = out + (size_t)m * f;
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (n + j < f) orow[n + j] = acc[i][4 * h + j];
+      for (int j = 0; j < NJ; ++j) {
+        const int n = n0 + wn * WN + j * 8 + 2 * t;
+        const float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
+        if (VEC) {                 // f % 4 == 0: n < f means n + 1 < f
+          if (n < f) *reinterpret_cast<float2*>(orow + n) = make_float2(v0, v1);
+        } else {
+          if (n < f) orow[n] = v0;
+          if (n + 1 < f) orow[n + 1] = v1;
+        }
       }
     }
+}
+
+template <int BM, bool VEC>
+int launch_tc(const float* x, const float* w, float* out, int E, int C,
+              int d, int f, cudaStream_t s) {
+  // above 48 KB of dynamic shared memory a kernel has to ask, once per
+  // device
+  static bool asked[64] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= 64) return -1;
+  if (!asked[dev]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        gmm_tc<BM, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        tile_smem<BM>());
+    if (err != cudaSuccess) return (int)err;
+    asked[dev] = true;
   }
+  const dim3 grid((C + BM - 1) / BM, (f + TBN - 1) / TBN, E);
+  gmm_tc<BM, VEC><<<grid, TNT, tile_smem<BM>(), s>>>(x, w, out, C, d, f);
+  return (int)cudaGetLastError();
+}
+
+// 32-row tiles up to C = 32, then 64-row ones (their m16 tiles past C
+// skipped)
+template <bool VEC>
+int dispatch_tc(const float* x, const float* w, float* out, int E, int C,
+                int d, int f, cudaStream_t s) {
+  return C <= 32 ? launch_tc<32, VEC>(x, w, out, E, C, d, f, s)
+                 : launch_tc<64, VEC>(x, w, out, E, C, d, f, s);
 }
 
 bool aligned16(const void* p) {
@@ -277,7 +440,9 @@ bool aligned16(const void* p) {
 
 extern "C" int gmm_fwd(const void* x, const void* w, void* out, int E, int C,
                        int d, int f, void* stream) {
-  if (E <= 0 || C <= 0 || d < 0 || f <= 0 || E > 65535) return -1;
+  if (E <= 0 || C <= 0 || d < 0 || f <= 0 || E > 65535 ||
+      (f + TBN - 1) / TBN > 65535)
+    return -1;
   const auto* xp = static_cast<const float*>(x);
   const auto* wp = static_cast<const float*>(w);
   auto* op = static_cast<float*>(out);
@@ -285,24 +450,17 @@ extern "C" int gmm_fwd(const void* x, const void* w, void* out, int E, int C,
   // 16-byte loads and stores need rows that are whole float4s
   const bool vec = d % 4 == 0 && f % 4 == 0 && aligned16(x) && aligned16(w) &&
                    aligned16(out);
-  const dim3 block_s(SW * 32), block_t(NT);
-  if (C <= 16) {
-    const dim3 grid((f + SCOLS - 1) / SCOLS, E);
-    if (C <= 8 && vec)
-      gmm_small_c<8, true><<<grid, block_s, 0, s>>>(xp, wp, op, C, d, f);
-    else if (C <= 8)
-      gmm_small_c<8, false><<<grid, block_s, 0, s>>>(xp, wp, op, C, d, f);
-    else if (vec)
-      gmm_small_c<16, true><<<grid, block_s, 0, s>>>(xp, wp, op, C, d, f);
-    else
-      gmm_small_c<16, false><<<grid, block_s, 0, s>>>(xp, wp, op, C, d, f);
-  } else {
-    if ((C + BM - 1) / BM > 65535) return -1;
-    const dim3 grid((f + BN - 1) / BN, (C + BM - 1) / BM, E);
-    if (vec)
-      gmm_tiled<true><<<grid, block_t, 0, s>>>(xp, wp, op, C, d, f);
-    else
-      gmm_tiled<false><<<grid, block_t, 0, s>>>(xp, wp, op, C, d, f);
-  }
+  if (C > 16)
+    return vec ? dispatch_tc<true>(xp, wp, op, E, C, d, f, s)
+               : dispatch_tc<false>(xp, wp, op, E, C, d, f, s);
+  const dim3 grid((f + SCOLS - 1) / SCOLS, E), block(SW * 32);
+  if (C <= 8 && vec)
+    gmm_small_c<8, true><<<grid, block, 0, s>>>(xp, wp, op, C, d, f);
+  else if (C <= 8)
+    gmm_small_c<8, false><<<grid, block, 0, s>>>(xp, wp, op, C, d, f);
+  else if (vec)
+    gmm_small_c<16, true><<<grid, block, 0, s>>>(xp, wp, op, C, d, f);
+  else
+    gmm_small_c<16, false><<<grid, block, 0, s>>>(xp, wp, op, C, d, f);
   return (int)cudaGetLastError();
 }

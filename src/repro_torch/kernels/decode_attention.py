@@ -10,13 +10,15 @@ oracles ``repro/kernels/ref.py::decode_attention_ref`` /
 :func:`decode_attention` and :func:`paged_decode_attention` launch their
 kernel for CUDA tensors and take the plain version only for tensors that
 lie on the CPU; anything else raises. Each wrapper's ``launches`` counts
-its kernel launches.
+its kernel launches: one per call, the split pass and the combine in one
+kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -25,10 +27,10 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 _Q_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_GROUP = 8       # query heads per KV head the kernel holds
-TILE = 64           # cache positions per tile of the kernel
-# blocks per SM the split aims for: the kernel's launch bounds
-# (MIN_BLOCKS in csrc/decode_attention.cu) keep four of them resident
-BLOCKS_PER_SM = 4
+TILE = 32           # cache positions per block step of the kernel
+# blocks per SM the split aims for: the kernel's launch bounds and shared
+# memory (csrc/decode_attention.cu) keep two of them resident
+BLOCKS_PER_SM = 2
 
 
 def decode_attention_plain(q, k, v, lengths):
@@ -96,13 +98,68 @@ def _entry(name: str, n_ptr: int, n_int: int):
     return fn
 
 
+_ws_lock = threading.Lock()
+# (device index, stream) -> [buffer, words at its start known to be zero]
+_ws_cache = {}
+
+
 def _workspace(q, nsplit):
-    """f32 partials: per (b, head, split) acc [hd], then (m, l) for all.
-    Freed on return into the caching allocator, which hands it out again
-    only in this stream's order, after both kernels."""
+    """Scratch of the kernel: B * H split counters, which must be zero when
+    it starts (it leaves them zero), then the f32 partials, per (b, head,
+    split) acc [hd], then (m, l) for all.
+
+    One buffer per device and stream, kept across calls, so the counters
+    need no launch of their own: only a call whose B * H exceeds the last
+    call's zeroes them (the words past the last B * H held partials)."""
     B, H, hd = q.shape
-    return torch.empty(B * H * nsplit * (hd + 2), dtype=torch.float32,
-                       device=q.device)
+    nctr = B * H
+    need = nctr * (1 + nsplit * (hd + 2))
+    key = (q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
+    with _ws_lock:
+        buf, zero = _ws_cache.get(key, (None, 0))
+        if buf is None or buf.numel() < need:
+            buf = torch.zeros(need, dtype=torch.float32, device=q.device)
+        elif zero < nctr:
+            buf[:nctr].zero_()
+        _ws_cache[key] = (buf, nctr)
+    return buf
+
+
+def _launch_contiguous(q, k, v, lengths, out, split_len, nsplit):
+    """Run the contiguous kernel into ``out`` at the given split, on the
+    current stream; the inputs are checked by the caller. Raises if the
+    kernel refuses the call or does not launch."""
+    B, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    ws = _workspace(q, nsplit)
+    fwd = _entry("decode_attention_fwd", 6, 8)
+    rc = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+             out.data_ptr(), ws.data_ptr(), B, H, KV, S, hd,
+             _Q_DTYPE_CODE[q.dtype], split_len, nsplit,
+             torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"decode_attention kernel launch failed (code "
+                           f"{rc}; split {split_len} x {nsplit})")
+
+
+def _launch_paged(q, k_pool, v_pool, block_table, lengths, out, split_len,
+                  nsplit):
+    """Run the paged kernel into ``out`` at the given split, on the
+    current stream; the inputs are checked by the caller. Raises if the
+    kernel refuses the call or does not launch."""
+    B, H, hd = q.shape
+    N, P, KV = k_pool.shape[0], k_pool.shape[1], k_pool.shape[2]
+    nb = block_table.shape[1]
+    ws = _workspace(q, nsplit)
+    fwd = _entry("paged_decode_attention_fwd", 7, 10)
+    rc = fwd(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+             block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+             ws.data_ptr(), B, H, KV, N, P, nb, hd, _Q_DTYPE_CODE[q.dtype],
+             split_len, nsplit,
+             torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"paged_decode_attention kernel launch failed "
+                           f"(code {rc}; split {split_len} x {nsplit})")
 
 
 def decode_attention(q, k, v, lengths):
@@ -111,7 +168,6 @@ def decode_attention(q, k, v, lengths):
     On CUDA: q f32 or bf16, k/v bf16, lengths int32, hd 64 or 128, at most
     ``MAX_GROUP`` query heads per KV head, all contiguous. The kernel
     reads ``lengths`` on the device; entries past a length are never read.
-    One launch of the wrapper runs the split pass and its combine pass.
     """
     tensors = (q, k, v, lengths)
     if all(t.device.type == "cpu" for t in tensors):
@@ -143,14 +199,7 @@ def decode_attention(q, k, v, lengths):
         raise ValueError("decode_attention: k/v must be 16-byte aligned")
     split_len, nsplit = decode_splits(B, KV, S, _sm_count(q.device.index))
     out = torch.empty_like(q)
-    ws = _workspace(q, nsplit)
-    fwd = _entry("decode_attention_fwd", 6, 8)
-    rc = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-             out.data_ptr(), ws.data_ptr(), B, H, KV, S, hd,
-             _Q_DTYPE_CODE[q.dtype], split_len, nsplit,
-             torch.cuda.current_stream(q.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"decode_attention kernel launch failed (code {rc})")
+    _launch_contiguous(q, k, v, lengths, out, split_len, nsplit)
     decode_attention.launches += 1
     return out
 
@@ -167,8 +216,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, lengths):
     contiguous, any page size. Table entries outside [0, N) are sentinels
     (clamped on the device, never dereferenced as they are); positions at
     or past a length are never read. The split is sized from B, KV and
-    ``nb * P`` alone, so no length reaches the host. One launch of the
-    wrapper runs the split pass and its combine pass.
+    ``nb * P`` alone, so no length reaches the host.
     """
     tensors = (q, k_pool, v_pool, block_table, lengths)
     if all(t.device.type == "cpu" for t in tensors):
@@ -215,16 +263,8 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, lengths):
     split_len, nsplit = decode_splits(B, KV, nb * P,
                                       _sm_count(q.device.index))
     out = torch.empty_like(q)
-    ws = _workspace(q, nsplit)
-    fwd = _entry("paged_decode_attention_fwd", 7, 10)
-    rc = fwd(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-             block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-             ws.data_ptr(), B, H, KV, N, P, nb, hd, _Q_DTYPE_CODE[q.dtype],
-             split_len, nsplit,
-             torch.cuda.current_stream(q.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"paged_decode_attention kernel launch failed (code {rc})")
+    _launch_paged(q, k_pool, v_pool, block_table, lengths, out, split_len,
+                  nsplit)
     paged_decode_attention.launches += 1
     return out
 

@@ -196,12 +196,19 @@ def test_decode_poisoned_past_length_is_exact():
 
 
 @pytest.mark.parametrize("B,KV,S,n_sm,want", [
-    (4, 8, 2048, 132, (128, 16)),    # the main path: 512 blocks
+    # the main path (4 slots, 8 KV heads, 2048 positions): 256 blocks, two
+    # per SM, the split chip_smoke.py's sweep found fastest
+    (4, 8, 2048, 132, (256, 8)),
     (1, 8, 2048, 132, (64, 32)),
-    (64, 8, 2048, 132, (1024, 2)),
+    (64, 8, 2048, 132, (2048, 1)),
     (128, 8, 2048, 132, (2048, 1)),  # enough blocks without a split
-    (3, 2, 48, 132, (64, 1)),
-    (2, 1, 300, 132, (64, 5)),
+    (3, 2, 48, 132, (32, 2)),
+    (2, 1, 300, 132, (32, 10)),
+    # served with fewer slots or a longer cache (the split never depends
+    # on the lengths, only on B, KV and S)
+    (2, 8, 2048, 132, (128, 16)),
+    (3, 8, 2048, 132, (192, 11)),
+    (4, 8, 4096, 132, (480, 9)),
 ])
 def test_decode_splits_cover_the_cache(B, KV, S, n_sm, want):
     split_len, nsplit = decode_splits(B, KV, S, n_sm)

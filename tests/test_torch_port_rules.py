@@ -230,14 +230,30 @@ def test_moe_assets_default_to_cuda(name):
 
 def test_gmm_kernel_source_and_wrapper_use_no_library_gemm():
     """``gmm.cu`` names its TPU kernel, targets sm_90a and calls no library
-    GEMM; the wrapper keeps the plain version and a launch counter and
-    launches only the hand-written kernel."""
+    GEMM; its tensor-core path is 3xTF32 only: every ``mma.sync`` is a TF32
+    m16n8k8, each operand is split into a high part rounded to TF32
+    (nearest, ties away, as ``cvt.rna.tf32.f32``) and the f32 rest, and
+    every product is the three terms, never one TF32 pass. The wrapper keeps the plain version and a
+    launch counter and launches only the hand-written kernel."""
+    import re
     from repro_torch.kernels import build
     assert build.ENTRY_POINTS["gmm"] == ("gmm_fwd",)
     src = (PORT / "kernels" / "csrc" / "gmm.cu").read_text()
     assert "repro/kernels/gmm.py::gmm" in src and "sm_90a" in src
-    for lib in ("cublas", "cutlass", "#include <torch", "mma.sync", "wmma"):
+    for lib in ("cublas", "cutlass", "#include <torch", "wmma"):
         assert lib not in src.lower(), lib
+    code = re.sub(r"//[^\n]*", "", src)      # the source without comments
+    mmas = re.findall(r'"mma\.sync[^"]*"', code)
+    assert mmas == ['"mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "']
+    # the split: hi rounded to TF32, lo = v - hi exact in f32 (the MMA
+    # reads its top 19 bits)
+    assert "(__float_as_uint(v) + 0x1000u) & 0xffffe000u" in code
+    assert "hi = tf32_rna(v);" in code
+    assert "lo = __float_as_uint(v - __uint_as_float(hi));" in code
+    # each accumulation is the three terms, small ones first
+    calls = re.findall(r"mma_tf32\(([^;]*)\);", code)
+    assert calls == ["part[i][j], alo[i], bhi", "part[i][j], ahi[i], blo",
+                     "part[i][j], ahi[i], bhi"], calls
     mod = (PORT / "kernels" / "gmm.py").read_text()
     assert "def gmm_plain(" in mod and "gmm.launches += 1" in mod
     # the count by shape sits beside the launch count, nowhere else
@@ -246,3 +262,24 @@ def test_gmm_kernel_source_and_wrapper_use_no_library_gemm():
     wrapper = mod[mod.index("def gmm(x, w)"):]
     for call in ("bmm", "matmul", "einsum", " @ "):
         assert call not in wrapper, call
+
+
+def test_decode_kernel_source_and_wrappers_use_no_library():
+    """``decode_attention.cu`` calls no library kernel (no cuBLAS, CUTLASS,
+    PyTorch headers or WMMA) and runs each call as one launch: one
+    ``<<<`` in the source; the wrappers launch only through its C entry
+    points and never reach a PyTorch attention call."""
+    import re
+    src = (PORT / "kernels" / "csrc" / "decode_attention.cu").read_text()
+    for lib in ("cublas", "cutlass", "#include <torch", "wmma"):
+        assert lib not in src.lower(), lib
+    code = re.sub(r"//[^\n]*", "", src)
+    assert code.count("<<<") == 1
+    mod = (PORT / "kernels" / "decode_attention.py").read_text()
+    for name in ("decode_attention", "paged_decode_attention"):
+        wrapper = mod[mod.index(f"def {name}(q"):]
+        wrapper = wrapper[:wrapper.index(f"{name}.launches = 0")]
+        assert wrapper.count(f"{name}.launches += 1") == 1
+        for call in ("scaled_dot_product_attention", "softmax", "einsum",
+                     "matmul", " @ "):
+            assert call not in wrapper, (name, call)
