@@ -142,6 +142,39 @@ def bound_ms(nbytes, flops, peak=PEAK_FLOPS["float32"]):
                                        else "operations")
 
 
+def flash_bound_ms(nbytes, flops):
+    """(bound ms, "bytes" | "operations", the CUDA-core bound ms) of flash
+    attention: the least time of either route to an f32-accurate product,
+    3xTF32 on the tensor cores (three TF32 products per f32 one at 495
+    TFLOP/s, the kernel's route) or the CUDA cores at 67 TFLOP/s, against
+    the bytes at the memory rate. The bound on the CUDA cores alone is
+    kept beside it."""
+    bound, bound_by = min(bound_ms(nbytes, 3 * flops, PEAK_FLOPS["tf32"]),
+                          bound_ms(nbytes, flops))
+    return bound, bound_by, bound_ms(nbytes, flops)[0]
+
+
+def kernel_times(fn, calls):
+    """[(kernel name, device ms per call)] of ``fn()`` over ``calls``
+    calls back to back, from torch.profiler's device-side events; empty
+    when the profiler reports no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [(evt.key.replace("(anonymous namespace)::", "")
+             .removeprefix("void ").split("(")[0],
+             evt.self_device_time_total / calls / 1e3)
+            for evt in prof.key_averages()
+            if evt.device_type == DeviceType.CUDA
+            and evt.self_device_time_total > 0]
+
+
 def flash_flops(B, H, Sq, hd, kv_len, q_offset, causal, window):
     """Operations the flash function needs for these inputs: 4*hd per
     visible (query, key) pair and head (q.k and p.v, a multiply and an add
@@ -230,23 +263,34 @@ def phase_kernels(cfg):
                     f"causal={causal} window={win} q_offset={qoff} "
                     f"kv_len={kvl}", got, want, name)
 
+    # full width, Sq != Skv: a 512-row query block at offset 1,536 of a
+    # 2,048-key cache whose last 48 columns are padding
+    q, k, v = randn(1, H, 512, hd), randn(1, KV, 2048, hd), \
+        randn(1, KV, 2048, hd)
+    kw = dict(causal=True, window=window, q_offset=1536, kv_len=2000)
+    flash_err = max(flash_err, check_close(
+        "flash qwen3-4b Sq=512 Skv=2048 q_offset=1536 kv_len=2000 f32",
+        flash_attention(q, k, v, **kw), flash_attention_plain(q, k, v, **kw),
+        "float32"))
+
     # timing at the largest prefill bucket the main path runs (2048)
     Sq = 2048
     q, k, v = randn(1, H, Sq, hd), randn(1, KV, Sq, hd), randn(1, KV, Sq, hd)
     flops = flash_flops(1, H, Sq, hd, Sq, 0, True, window)
     nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
-    bound, bound_by = bound_ms(nbytes, flops)
+    bound, bound_by, simt = flash_bound_ms(nbytes, flops)
     ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True, window=window))
     plain_ms = cuda_ms(lambda: flash_attention_plain(
         q, k, v, causal=True, window=window), iters=5)
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True))
-    log(f"  flash Sq=Skv={Sq} H={H} KV={KV} hd={hd} f32: kernel {ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms, sdpa {lib_ms:.3f} ms, bound {bound:.3f} ms "
-        f"({bound_by}; {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)")
+    log(f"  flash Sq=Skv={Sq} H={H} KV={KV} hd={hd} f32: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound:.4f} "
+        f"ms ({bound_by}; {flops / 1e9:.1f} GFLOP x3 in TF32 at 495 "
+        f"TFLOP/s, {nbytes / 1e6:.1f} MB), CUDA-core bound {simt:.4f} ms")
     out["flash_attention"] = dict(
         max_abs_err=flash_err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-        bound_by=bound_by, library_ms=lib_ms,
+        bound_by=bound_by, simt_bound_ms=simt, library_ms=lib_ms,
         library="torch.nn.functional.scaled_dot_product_attention",
         shape=f"q [1,{H},{Sq},{hd}] f32, k/v [1,{KV},{Sq},{hd}], causal, "
               f"window {window}")
@@ -637,24 +681,43 @@ def phase_recurrent_kernels():
         library="none: no single PyTorch call computes the recurrence",
         shape=f"a/b [{B},{S},{W}] f32, h0 [{B},{W}]")
 
-    # -- wkv_scan: 2,048 steps of state accumulation, compared relative to
-    #    the output's scale: f32 rounding (2^-24) over the steps and the
-    #    64-term sums stays far below 1e-4 of the largest value
+    # -- wkv_scan: up to 2,048 steps of state accumulation, compared
+    #    relative to the output's scale: f32 rounding (2^-24) over the steps
+    #    and the 64-term sums stays far below 1e-4 of the largest value. T
+    #    at and around the kernel's chunk edges (CHUNK = 64: 1, 33, 64, 65,
+    #    1501, 2048), w from three draws: the first version's [0.9, 0.999],
+    #    the model's range exp(-exp(d)) for d in [-12, 1.5]
+    #    (models/rwkv6.py), and [0, 1] with exact zeros and ones (a tenth
+    #    each: the kernel's contract)
     H, N, rel = 64, 64, 1e-4
+
+    def decays(B, T, draw):
+        if draw == "[0.9, 0.999]":
+            return uniform(B, T, H, N, lo=0.9, hi=0.999)
+        if draw == "model range":
+            return torch.exp(-torch.exp(uniform(B, T, H, N, lo=-12.0,
+                                                hi=1.5)))
+        w = uniform(B, T, H, N, lo=0.0, hi=1.0)
+        pick = uniform(B, T, H, N, lo=0.0, hi=1.0)
+        return torch.where(pick < 0.1, 0.0, torch.where(pick > 0.9, 1.0, w))
+
     wkv_err = 0.0
-    for B, T in ((1, 2048), (1, 1501), (2, 33)):
-        r, k, v = randn(B, T, H, N), randn(B, T, H, N, scale=0.2), \
-            randn(B, T, H, N)
-        w = uniform(B, T, H, N, lo=0.9, hi=0.999)
-        u = randn(H, N)
-        s0 = randn(B, H, N, N, scale=0.1)
-        y, s = ops.wkv_scan(r, k, v, w, u, s0)
-        py, ps = wkv_scan_plain(r, k, v, w, u, s0)
-        wkv_err = max(wkv_err, check_scaled(
-            f"wkv_scan y B={B} T={T} H={H} N={N} s0 != 0", y, py, rel),
-            check_scaled(f"wkv_scan s_final B={B} T={T}", s, ps, rel))
-    y, s = wkv_scan(r, k, v, w, u)                  # s0 = None: zeros
-    check_scaled("wkv_scan s0 None", y, wkv_scan_plain(r, k, v, w, u)[0], rel)
+    for draw in ("[0.9, 0.999]", "model range", "[0, 1] with 0 and 1"):
+        for B, T in ((1, 2048), (1, 1501), (2, 33), (1, 1), (1, 64),
+                     (2, 65)):
+            r, k, v = randn(B, T, H, N), randn(B, T, H, N, scale=0.2), \
+                randn(B, T, H, N)
+            w = decays(B, T, draw)
+            u = randn(H, N)
+            s0 = randn(B, H, N, N, scale=0.1)
+            for with_s0 in (True, False):
+                y, s = ops.wkv_scan(r, k, v, w, u, s0 if with_s0 else None)
+                py, ps = wkv_scan_plain(r, k, v, w, u,
+                                        s0 if with_s0 else None)
+                name = (f"wkv_scan B={B} T={T} H={H} N={N} w {draw} "
+                        f"s0 {'!= 0' if with_s0 else 'None'}")
+                wkv_err = max(wkv_err, check_scaled(f"{name} y", y, py, rel),
+                              check_scaled(f"{name} s_final", s, ps, rel))
     B, T = 1, 2048
     r, k, v = randn(B, T, H, N), randn(B, T, H, N, scale=0.2), \
         randn(B, T, H, N)
@@ -670,6 +733,11 @@ def phase_recurrent_kernels():
     log(f"  wkv_scan [{B},{T},{H},{N}] f32: kernel {ms:.4f} ms, plain "
         f"{plain_ms:.3f} ms, bound {bound:.4f} ms ({bound_by}); no single "
         "PyTorch call computes the recurrence")
+    # the chunked scan is three launches: each one's device time
+    log("  wkv_scan launches, device ms per call (torch.profiler, 5 calls "
+        "back to back): " + ", ".join(
+            f"{name} {t:.4f}" for name, t in
+            kernel_times(lambda: wkv_scan(r, k, v, w, u, s0), 5)))
     out["wkv_scan"] = dict(
         max_abs_err=wkv_err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
         bound_by=bound_by, library_ms=None,
@@ -726,8 +794,8 @@ def phase_recurrent_kernels():
     S, window = 2048, 2048
     q, k, v = randn(1, Hq, S, hd), randn(1, KV, S, hd), randn(1, KV, S, hd)
     flops = flash_flops(1, Hq, S, hd, S, 0, True, window)
-    bound, bound_by = bound_ms(4 * (2 * q.numel() + k.numel() + v.numel()),
-                             flops)
+    bound, bound_by, simt = flash_bound_ms(
+        4 * (2 * q.numel() + k.numel() + v.numel()), flops)
     ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True,
                                          window=window))
     plain_ms = cuda_ms(lambda: flash_attention_plain(
@@ -735,12 +803,12 @@ def phase_recurrent_kernels():
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True))
     log(f"  flash hd=256 q [1,{Hq},{S},{hd}] k/v [1,{KV},{S},{hd}] f32 "
-        f"causal window {window}: kernel {ms:.3f} ms, plain {plain_ms:.3f} "
-        f"ms, sdpa {lib_ms:.3f} ms, bound {bound:.3f} ms ({bound_by}; "
-        f"{flops / 1e9:.1f} GFLOP)")
+        f"causal window {window}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+        f"ms, sdpa {lib_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}; "
+        f"{flops / 1e9:.1f} GFLOP x3 in TF32), CUDA-core bound {simt:.4f} ms")
     out["flash_attention_hd256"] = dict(
         max_abs_err=fl_err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-        bound_by=bound_by, library_ms=lib_ms,
+        bound_by=bound_by, simt_bound_ms=simt, library_ms=lib_ms,
         library="torch.nn.functional.scaled_dot_product_attention",
         shape=f"q [1,{Hq},{S},{hd}] f32, k/v [1,{KV},{S},{hd}], causal, "
               f"window {window}")
@@ -823,8 +891,8 @@ def phase_gmm_kernel():
         del x, w
     # NaN (with payloads that the TF32 rounding's integer add could carry
     # into the exponent or sign) and Inf in x and w, on both paths: every
-    # output the plain version has NaN is NaN, the non-finite outputs are
-    # the plain version's, and the finite ones agree within the tolerance
+    # output is NaN, +Inf or -Inf exactly where the plain version's is, and
+    # the finite ones agree within the tolerance
     import numpy as np
     bits = np.array([0x7FFFF000, 0xFFFFF001, 0x7F800001, 0x7FC00000],
                     dtype=np.uint32)
@@ -839,6 +907,8 @@ def phase_gmm_kernel():
         fin = torch.isfinite(want)
         ok = (bool(got.isnan()[want.isnan()].all())
               and torch.equal(torch.isfinite(got), fin)
+              and torch.equal(got.isposinf(), want.isposinf())
+              and torch.equal(got.isneginf(), want.isneginf())
               and torch.allclose(got[fin], want[fin], **TOL["float32"]))
         log(f"  gmm [{E},{C},{d}] @ [{E},{d},{f}] with NaN and Inf inputs: "
             f"{int(want.isnan().sum())} NaN and {int(want.isinf().sum())} "

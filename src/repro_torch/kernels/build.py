@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library, loaded with
 ``ctypes``. Builds happen at first use (never at import), into
-``kernels/_build/`` inside the checkout, named by a hash of the source and
-flags so an edited source rebuilds and an unchanged one is reused.
+``kernels/_build/`` inside the checkout, named by a hash of the source, the
+headers it includes from ``csrc/`` and the flags, so an edited source or
+header rebuilds and an unchanged one is reused.
 :func:`build_all` starts one ``nvcc`` per source at once.
 """
 
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -51,8 +53,27 @@ def nvcc_path() -> str:
                        "machine with the CUDA toolkit")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(name: str):
+    """``csrc/<name>.cu`` and every header it includes from ``csrc/``
+    (``#include "..."``, followed through headers), in include order."""
+    seen, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [CSRC / inc.decode() for inc in
+                 _INCLUDE.findall(path.read_bytes())]
+    return seen
+
+
 def _target(name: str) -> Path:
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    h = hashlib.sha256()
+    for path in _sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 

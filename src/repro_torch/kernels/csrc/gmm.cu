@@ -18,16 +18,14 @@
 //   eight rows of loads issued before their FMAs; each warp stages x's
 //   matching rows in shared memory (read back as broadcasts), and the 8
 //   partial sums meet in shared memory at the end.
-// - C > 16, gmm_tc, on the tensor cores in 3xTF32. Each element v of x
-//   and w is split as it is read for a fragment into hi = tf32(v), rounded
-//   to nearest, ties away (cvt.rna's rounding), and lo = v - hi, which the
-//   MMA reads as TF32 rounded toward zero (split_tf32's note), and each
+// - C > 16, gmm_tc, on the tensor cores in 3xTF32 (tf32_mma.cuh): each
+//   element v of x and w is split as it is read for a fragment into hi =
+//   tf32(v), rounded to nearest, ties away, and lo = v - hi, and each
 //   product is a_lo b_hi + a_hi b_lo + a_hi b_hi: three
 //   mma.sync.m16n8k8 TF32 issues with f32 accumulation, the small terms
-//   first. The dropped a_lo b_lo is below f32 rounding. Its bound is the
-//   larger of the weight bytes at 3.35 TB/s and 3 x 2 C d f at the 495
-//   TFLOP/s TF32 peak: bytes up to C ~ 100 at these widths, operations
-//   above. The design:
+//   first. Its bound is the larger of the weight bytes at 3.35 TB/s and
+//   3 x 2 C d f at the 495 TFLOP/s TF32 peak: bytes up to C ~ 100 at these
+//   widths, operations above. The design:
 //   * Row tiles sized to C: BM = 32 rows up to C = 32, else 64, and a warp
 //     skips its m16 row tiles wholly past C (C = 24 computes 32 rows, 40
 //     48, 80 80). The row tiles of one column tile are neighbours in the
@@ -43,6 +41,14 @@
 //   * 4 warps, each a 32 x 32 (BM = 32) or 32 x 64 (BM = 64) tile of m16n8
 //     accumulators; each slice accumulates on the tensor cores from zero
 //     and is added into the f32 sum (mma_slice, gmm_tc's note).
+//   * Non-finite inputs: the split makes an Inf input NaN in every output
+//     it reaches. After its main loop each block tests its accumulators
+//     for NaN and votes (__syncthreads_or); only a block that votes yes
+//     recomputes its tile on the CUDA cores in plain f32, in k order, from
+//     x and w in device memory. So every output is +Inf, -Inf or NaN
+//     exactly where the f32 product's is (phase 2c of chip_smoke.py holds
+//     the three classes), at the cost of a compare per accumulator and a
+//     vote in the common case.
 //   Accuracy: against the product in f64 this path is closer than the
 //   plain version's f32 product (chip_smoke.py phase 2c prints both at
 //   every served shape): each slice's 12 MMAs truncate only a 32-term
@@ -56,12 +62,18 @@
 // token's result does not depend on its co-batch. It depends on C only
 // through the path: C <= 16 and C > 16 sum differently (the row tile does
 // not change the order).
+// Registers and spills (-Xptxas -v, sm_90a): gmm_tc 140-141 (BM = 32) and
+// 215-216 (BM = 64), the repair included; gmm_small_c 80-128 with 16,384
+// or 24,576 bytes of shared memory; no spills.
 //
 // Interface: plain C, launched on the caller's stream; returns the CUDA
 // error code after the launch (0 on success), or -1 for bad sizes.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include "tf32_mma.cuh"
 
 namespace {
 
@@ -222,39 +234,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// v ~ hi + lo. hi is v rounded to TF32, to nearest with ties away from
-// zero: what cvt.rna.tf32.f32 gives, done here with an integer add and
-// mask (a conversion instruction issues at a fraction of the integer rate,
-// and the split runs for every element of every fragment). lo = v - hi is
-// exact in f32 and goes to the MMA as it is: a .tf32 operand is read from
-// its top 19 bits, so lo is rounded toward zero there, an error of at most
-// 2^-21 |v| (the f32 product's rounding is 2^-24 per term; phase 2c holds
-// both to f64). Non-finite inputs: the add can carry a NaN's payload into
-// its exponent or sign (hi may come out 0, Inf or finite), but v - hi is
-// then the canonical NaN, so lo keeps the NaN and every output it reaches
-// is NaN; an Inf gives hi = Inf and lo = Inf - Inf = NaN, so an output an
-// Inf reaches is NaN where the f32 product has Inf (or NaN). An output is
-// non-finite where the f32 product's is, and NaN where a NaN reached it
-// (a finite v within half a TF32 step of the f32 maximum rounds to hi =
-// Inf, as with cvt.rna).
-__device__ __forceinline__ uint32_t tf32_rna(float v) {
-  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
-}
-__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = tf32_rna(v);
-  lo = __float_as_uint(v - __uint_as_float(hi));
-}
-
-// c += a b for one m16n8k8 tile, TF32 inputs, f32 accumulation
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 // One staged k slice on the tensor cores, added into `part`, for the
 // warp's first MI m16 row tiles (those that hold a row below C): every
 // product a b as a_lo b_hi + a_hi b_lo + a_hi b_hi, the small terms first.
@@ -378,6 +357,52 @@ gmm_tc(const float* __restrict__ x, const float* __restrict__ w,
         for (int r = 0; r < 4; ++r) acc[i][j][r] += part[i][j][r];
   }
   cp_async_wait<0>();
+
+  // Non-finite repair, off the hot loop: the split turns an Inf input into
+  // NaN (tf32_mma.cuh), and a NaN is the only sign of it. A block whose
+  // accumulators hold one recomputes its tile on the CUDA cores in plain
+  // f32, in k order, from x and w in device memory, so every output is
+  // +Inf, -Inf or NaN where the f32 product is. The common case costs a
+  // compare per accumulator and one vote.
+  bool nan_seen = false;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) nan_seen |= isnan(acc[i][j][r]);
+  if (__syncthreads_or(nan_seen)) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
+    for (int k = 0; k < d; ++k) {
+      float xv[2][2], wv[NJ][2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = m0 + wm * 32 + i * 16 + g + 8 * h;
+          xv[i][h] = m < C ? x[(size_t)m * d + k] : 0.f;
+        }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int n = n0 + wn * WN + j * 8 + 2 * t + e;
+          wv[j][e] = n < f ? w[(size_t)k * f + n] : 0.f;
+        }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            acc[i][j][r] = fmaf(xv[i][r >> 1], wv[j][r & 1], acc[i][j][r]);
+    }
+  }
 
   // accumulator (i, j): rows g and g + 8 of the i-th m16, columns 2t, 2t + 1
   // of the j-th n8

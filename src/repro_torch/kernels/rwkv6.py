@@ -11,7 +11,8 @@ transpose is made. ``u`` is ``[H, N]`` and multiplies along the key index
 
 :func:`wkv_scan` launches the kernel for CUDA tensors and takes the plain
 version only for tensors that lie on the CPU; anything else raises.
-``wkv_scan.launches`` counts kernel launches.
+``wkv_scan.launches`` counts kernel calls: one per call, though the
+chunked scan is three launches (``csrc/rwkv6.cu``).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 from repro_torch.kernels import build
 
 HEAD_DIM = 64   # the one N the kernel is built for (rwkv6-7b's)
+CHUNK = 64      # the kernel's chunk of time steps (``csrc/rwkv6.cu``)
 
 
 def wkv_scan_plain(r, k, v, w, u, s0=None):
@@ -46,7 +48,7 @@ def wkv_scan_plain(r, k, v, w, u, s0=None):
 def _lib():
     fn = build.load("rwkv6").wkv_scan_fwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + \
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + \
             [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -57,7 +59,7 @@ def wkv_scan(r, k, v, w, u, s0=None):
     (y [B, T, H, N], s_final [B, H, N, N]).
 
     On CUDA: f32, contiguous, r/k/v/w 16-byte aligned, N =
-    ``HEAD_DIM``, any T (no padding)."""
+    ``HEAD_DIM``, any T (no padding), any w in [0, 1]."""
     tensors = (r, k, v, w, u) if s0 is None else (r, k, v, w, u, s0)
     if all(t.device.type == "cpu" for t in tensors):
         return wkv_scan_plain(r, k, v, w, u, s0)
@@ -84,9 +86,15 @@ def wkv_scan(r, k, v, w, u, s0=None):
                          "kernel stages them with 16-byte copies)")
     y = torch.empty_like(r)
     s_final = torch.empty((B, H, N, N), dtype=torch.float32, device=r.device)
+    # scratch of the chunked scan: each chunk's state and decay product
+    nc = max(1, -(-T // CHUNK))
+    d_state = torch.empty((B, H, nc, N, N), dtype=torch.float32,
+                          device=r.device)
+    decay = torch.empty((B, H, nc, N), dtype=torch.float32, device=r.device)
     rc = _lib()(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                 u.data_ptr(), None if s0 is None else s0.data_ptr(),
-                y.data_ptr(), s_final.data_ptr(), B, T, H, N,
+                y.data_ptr(), s_final.data_ptr(), d_state.data_ptr(),
+                decay.data_ptr(), B, T, H, N, CHUNK,
                 torch.cuda.current_stream(r.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"wkv_scan kernel launch failed (code {rc})")

@@ -63,6 +63,57 @@ def interpret_backend():
 # flash attention
 # ---------------------------------------------------------------------------
 
+def _tf32_rna(x):
+    """f32 -> TF32 rounded to nearest, ties away (``tf32_mma.cuh``'s integer
+    add and mask)."""
+    b = x.astype(np.float32).view(np.uint32).astype(np.uint64)
+    return ((b + 0x1000) & 0xFFFFE000).astype(np.uint32).view(np.float32)
+
+
+def _tf32_trunc(x):
+    """What an MMA reads of an f32 operand: its top 19 bits."""
+    b = x.astype(np.float32).view(np.uint32)
+    return (b & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def test_flash_pv_fragments_cover_each_key_once():
+    """The flash kernel feeds P to the second MMA from its score
+    accumulators: lane (g, t) holds columns 2t, 2t + 1 of each n8 tile and
+    hands them over as A's k = t, t + 4; V's B fragment comes from key rows
+    2t, 2t + 1. One m16n8k8 tile, lane by lane, in the hardware's operand
+    layout: the product is P V."""
+    rng = np.random.default_rng(60)
+    P, V = rng.normal(size=(16, 8)), rng.normal(size=(8, 8))
+    A, B = np.full((16, 8), np.nan), np.full((8, 8), np.nan)
+    for lane in range(32):
+        g, t = lane // 4, lane % 4
+        acc = (P[g, 2 * t], P[g, 2 * t + 1], P[g + 8, 2 * t],
+               P[g + 8, 2 * t + 1])                 # the score accumulator
+        a = (acc[0], acc[2], acc[1], acc[3])        # the kernel's order
+        A[g, t], A[g + 8, t], A[g, t + 4], A[g + 8, t + 4] = a
+        B[t, g], B[t + 4, g] = V[2 * t, g], V[2 * t + 1, g]
+    assert not np.isnan(A).any() and not np.isnan(B).any()
+    np.testing.assert_allclose(A @ B, P @ V, rtol=1e-12, atol=1e-12)
+
+
+def test_3xtf32_split_keeps_f32_accuracy():
+    """hi = rna(v), lo = v - hi read by the MMA from its top 19 bits, and
+    a_lo b_hi + a_hi b_lo + a_hi b_hi over one 32-deep slice: within a few
+    f32 roundings of the f64 product, where one TF32 product is not."""
+    rng = np.random.default_rng(61)
+    a = rng.normal(size=(16, 32)).astype(np.float32)
+    b = rng.normal(size=(32, 8)).astype(np.float32)
+    ahi, bhi = _tf32_rna(a), _tf32_rna(b)
+    alo, blo = _tf32_trunc(a - ahi), _tf32_trunc(b - bhi)
+    f64 = lambda x: x.astype(np.float64)           # noqa: E731
+    three = f64(alo) @ f64(bhi) + f64(ahi) @ f64(blo) + f64(ahi) @ f64(bhi)
+    exact = f64(a) @ f64(b)
+    scale = np.abs(f64(a)) @ np.abs(f64(b))
+    assert np.max(np.abs(three - exact) / scale) < 2 ** -20
+    one = f64(_tf32_trunc(a)) @ f64(_tf32_trunc(b))
+    assert np.max(np.abs(one - exact) / scale) > 2 ** -14
+
+
 @pytest.mark.parametrize("name", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,H,KV,Sq,Skv,hd,causal,window,q_offset", [
     (2, 4, 2, 48, 48, 64, True, None, 0),      # GQA causal

@@ -238,8 +238,13 @@ def test_gmm_kernel_source_and_wrapper_use_no_library_gemm():
     import re
     from repro_torch.kernels import build
     assert build.ENTRY_POINTS["gmm"] == ("gmm_fwd",)
-    src = (PORT / "kernels" / "csrc" / "gmm.cu").read_text()
+    csrc = PORT / "kernels" / "csrc"
+    src = (csrc / "gmm.cu").read_text()
     assert "repro/kernels/gmm.py::gmm" in src and "sm_90a" in src
+    # the TF32 split and MMA live in the header gmm.cu includes (shared
+    # with flash_attention.cu): the source as compiled is both
+    assert '#include "tf32_mma.cuh"' in src
+    src += (csrc / "tf32_mma.cuh").read_text()
     for lib in ("cublas", "cutlass", "#include <torch", "wmma"):
         assert lib not in src.lower(), lib
     code = re.sub(r"//[^\n]*", "", src)      # the source without comments
@@ -283,3 +288,48 @@ def test_decode_kernel_source_and_wrappers_use_no_library():
         for call in ("scaled_dot_product_attention", "softmax", "einsum",
                      "matmul", " @ "):
             assert call not in wrapper, (name, call)
+
+def test_build_hashes_the_headers_a_source_includes(tmp_path, monkeypatch):
+    """A kernel library is named by its source, the headers it includes
+    from ``csrc/`` (followed through headers) and the flags: an edited
+    header rebuilds, an unchanged tree reuses."""
+    from repro_torch.kernels import build
+    assert [p.name for p in build._sources("gmm")] == ["gmm.cu",
+                                                        "tf32_mma.cuh"]
+    assert [p.name for p in build._sources("flash_attention")] == [
+        "flash_attention.cu", "tf32_mma.cuh"]
+    assert [p.name for p in build._sources("rwkv6")] == ["rwkv6.cu"]
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    (tmp_path / "a.cu").write_text('#include "b.cuh"\n#include <stdint.h>\n')
+    (tmp_path / "b.cuh").write_text('#pragma once\n#include "c.cuh"\n')
+    (tmp_path / "c.cuh").write_text("// one\n")
+    first = build._target("a")
+    assert build._target("a") == first
+    (tmp_path / "c.cuh").write_text("// two\n")
+    second = build._target("a")
+    assert second != first
+    (tmp_path / "b.cuh").write_text('#pragma once\n#include "c.cuh"\n// x\n')
+    assert build._target("a") not in (first, second)
+
+
+def test_flash_kernel_source_is_3xtf32_on_the_tensor_cores():
+    """``flash_attention.cu`` takes both products on the tensor cores in
+    3xTF32 from the shared header: f32 operands split, the three terms in
+    two accumulators added small ones first (the second small term only
+    when the staged type is f32: bf16 is exact in TF32), P from the score
+    registers (no shared buffer for P), and no library."""
+    import re
+    src = (PORT / "kernels" / "csrc" / "flash_attention.cu").read_text()
+    assert '#include "tf32_mma.cuh"' in src
+    code = re.sub(r"//[^\n]*", "", src)
+    for lib in ("cublas", "cutlass", "#include <torch", "wmma", "sP["):
+        assert lib not in code, lib
+    assert "mma.sync" not in code           # only through mma_tf32
+    calls = re.findall(r"mma_tf32\(([^;]*)\);", code)
+    assert calls == ["small[j], alo, bhi", "small[j], ahi, blo",
+                     "part[j], ahi, bhi", "small, plo[kk], bhi",
+                     "small, phi[kk], blo", "part, phi[kk], bhi"], calls
+    # the small terms' sum is added first
+    assert "s[j][r] += small[j][r] + part[j][r];" in code
+    assert "o[n][r] += small[r] + part[r];" in code
+    assert "split_tf32(p[kk][" in code      # P is always split

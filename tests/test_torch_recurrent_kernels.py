@@ -11,6 +11,8 @@ order; attention sums in another order); ``wkv_scan`` at its atol 1e-4 /
 rtol 1e-3 (an N-term dot product per step, accumulated over T steps).
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -26,7 +28,7 @@ from repro.kernels.rwkv6 import wkv_scan as pallas_wkv  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_plain  # noqa: E402
 from repro_torch.kernels.rglru import rglru_scan, rglru_scan_plain  # noqa: E402
-from repro_torch.kernels.rwkv6 import wkv_scan, wkv_scan_plain  # noqa: E402
+from repro_torch.kernels.rwkv6 import CHUNK, wkv_scan, wkv_scan_plain  # noqa: E402
 
 RGLRU_TOL = dict(atol=1e-5, rtol=1e-4)
 WKV_TOL = dict(atol=1e-4, rtol=1e-3)
@@ -148,6 +150,101 @@ def test_wkv_ops_ragged_matches_jax_ops(interpret_backend, T, with_s0):
     assert wkv_scan.launches == n0          # CPU tensors: no kernel
     np.testing.assert_allclose(y.numpy(), np.asarray(jy), **WKV_TOL)
     np.testing.assert_allclose(s.numpy(), np.asarray(js), **WKV_TOL)
+
+
+def _wkv_three_pass(r, k, v, w, u, s0, L):
+    """A plain mirror of the chunked scan in ``csrc/rwkv6.cu`` (tests only):
+    (a) each chunk's sequential step from S = 0 (chunk 0 from s0), giving
+    y_loc (its u term as ``v * r.(u*k)``), the chunk's state dS_c and its
+    decay product D_c; (b) the chunks' start states in order, S_{c+1} =
+    D_c * S_c + dS_c from S_1 = dS_0, the last one s_final; (c) for chunks
+    c >= 1, y_t += (r_t * W_t) . S_c with W_t the running product of w over
+    the chunk's earlier steps. Products of w only, no logarithms."""
+    B, T, H, N = r.shape
+    nc = -(-T // L)
+    y = torch.empty_like(r)
+    d_state, decay = [], []
+    for c in range(nc):                                     # (a)
+        s = s0.clone() if c == 0 and s0 is not None else \
+            torch.zeros(B, H, N, N)
+        d = torch.ones(B, H, N)
+        for t in range(c * L, min(T, (c + 1) * L)):
+            ruk = (r[:, t] * u * k[:, t]).sum(-1, keepdim=True)
+            y[:, t] = torch.einsum("bhi,bhij->bhj", r[:, t], s) + \
+                v[:, t] * ruk
+            s = w[:, t, :, :, None] * s + \
+                k[:, t, :, :, None] * v[:, t, :, None, :]
+            d = d * w[:, t]
+        d_state.append(s)
+        decay.append(d)
+    if nc == 0:                                             # (b)
+        return y, torch.zeros(B, H, N, N) if s0 is None else s0.clone()
+    starts, state = [None], d_state[0]
+    for c in range(1, nc):
+        starts.append(state)
+        state = decay[c][..., None] * state + d_state[c]
+    for c in range(1, nc):                                  # (c)
+        W = torch.ones(B, H, N)
+        for t in range(c * L, min(T, (c + 1) * L)):
+            y[:, t] += torch.einsum("bhi,bhij->bhj", r[:, t] * W, starts[c])
+            W = W * w[:, t]
+    return y, state
+
+
+def _w_with_zeros_and_ones(shape, seed):
+    """w in [0, 1] with exact zeros and ones among the draws (a tenth each):
+    the kernel's contract, wider than the model's clamped range."""
+    rng = np.random.default_rng(seed)
+    w = rng.uniform(0.0, 1.0, size=shape).astype(np.float32)
+    pick = rng.uniform(size=shape)
+    w[pick < 0.1] = 0.0
+    w[pick > 0.9] = 1.0
+    return w
+
+
+def test_chunk_length_is_the_kernels():
+    src = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" /
+           "kernels" / "csrc" / "rwkv6.cu").read_text()
+    assert f"constexpr int L = {CHUNK};" in src
+
+
+@pytest.mark.parametrize("T", [CHUNK - 24, CHUNK, 3 * CHUNK + 5])
+@pytest.mark.parametrize("with_s0", [False, True])
+def test_wkv_chunk_algebra_matches_ref_and_pallas(interpret_backend, T,
+                                                   with_s0):
+    """The chunked scan's three passes at the kernel's chunk length, at the
+    chunk edges (T < L, T = L, T = 3L + 5) and with w holding exact 0 and
+    1, against ``ref.rwkv6_ref`` and the Pallas kernel in interpret mode
+    (through the JAX ``ops``, which pads T)."""
+    B, H, N = 2, 2, 64
+    r, k, v, _, u, s0 = _wkv_inputs(B, T, H, N, seed=40)
+    w = _w_with_zeros_and_ones((B, T, H, N), 46)
+    assert (w == 0).any() and (w == 1).any()
+    s0 = s0 if with_s0 else None
+    j = [jnp.asarray(x) for x in (r, k, v, w, u)]
+    js0 = jnp.asarray(s0) if with_s0 else jnp.zeros((B, H, N, N))
+    y_ref, s_ref = ref.rwkv6_ref(*j, js0)
+    py, ps = jops.wkv_scan(*j, None if s0 is None else js0)
+    y, s = _wkv_three_pass(*(torch.from_numpy(x) for x in (r, k, v, w, u)),
+                           None if s0 is None else torch.from_numpy(s0),
+                           CHUNK)
+    for got, want in ((y, y_ref), (s, s_ref), (y, py), (s, ps)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **WKV_TOL)
+
+
+@pytest.mark.parametrize("L", [1, 4, 7])
+def test_wkv_chunk_algebra_at_short_chunks(L):
+    """Many chunk edges: the three passes at short chunks (L = 1 makes every
+    step its own chunk) equal the sequential plain version, w with exact 0
+    and 1, with s0."""
+    B, T, H, N = 1, 23, 2, 64
+    r, k, v, _, u, s0 = _wkv_inputs(B, T, H, N, seed=50)
+    w = _w_with_zeros_and_ones((B, T, H, N), 56)
+    args = [torch.from_numpy(x) for x in (r, k, v, w, u, s0)]
+    y, s = _wkv_three_pass(*args, L)
+    py, ps = wkv_scan_plain(*args)
+    np.testing.assert_allclose(y.numpy(), py.numpy(), **WKV_TOL)
+    np.testing.assert_allclose(s.numpy(), ps.numpy(), **WKV_TOL)
 
 
 def test_wrappers_refuse_mixed_devices():
