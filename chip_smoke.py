@@ -12,7 +12,10 @@ Phases, in order; any failure exits non-zero:
    kernels over every split count (1-32 blocks per sequence and KV head)
    with a cold and a warm L2, failing if ``decode_splits``' pick is more
    than 25% slower than the best (2b: the recurrent kernels and flash at
-   head_dim 256, at the hybrid's and the SSM's full-width prefill shapes;
+   head_dim 256, at the hybrid's and the SSM's full-width prefill shapes,
+   ``rglru_scan`` also at its segment and round edges, three draws of a,
+   an Inf case and ragged W, timed at every prefill bucket the hybrid
+   serves beside PyTorch's elementwise a + b, and its variants swept;
    2c: ``gmm`` at every shape phase 8 can give it, a decode step's and
    each prefill bucket's, and at ragged ones, its tensor-core path above
    C = 16 no slower than ``torch.bmm``);
@@ -34,8 +37,9 @@ Phases, in order; any failure exits non-zero:
    HTTP at ``max_batch`` 4 and ``max_seq`` 4096; serve four greedy v2
    predicts (5-1501 tokens) and one v1 predict sampled at 0.8 at once;
    check the launches (per prefill: 26 ``rglru_scan`` + 12 flash, or 32
-   ``wkv_scan``; none in decode), co-batched == alone, every greedy token
-   against the scoring forward's argmax, and the reduced model GPU == CPU;
+   ``wkv_scan``; none in decode; ``rglru_scan``'s by shape), co-batched ==
+   alone, every greedy token against the scoring forward's argmax, and the
+   reduced model GPU == CPU;
    profile a decode step; print the peak memory; undeploy;
 8. the MoE family: reduced Phi-3.5-MoE and Qwen3-MoE GPU == CPU, then
    full-width Phi-3.5-MoE cut to 8 of its 32 layers (42.7 GB of f32
@@ -623,6 +627,169 @@ def check_scaled(name, got, want, rel):
     return err
 
 
+# the RG-LRU scan's timed shapes: [1, S, 4096] at each prefill bucket the
+# hybrid serves (16 to its max_seq 4096), and B = 4
+RGLRU_TIMED = tuple((1, S, 4096) for S in (16, 32, 64, 512, 2048, 4096)) \
+    + ((4, 2048, 4096),)
+# the kernel's variants (steps a segment, warps a block) swept at the
+# largest shapes; (8, 32) is the one rglru_scan launches
+RGLRU_VARIANTS = ((4, 32), (8, 32), (8, 16), (16, 16), (16, 8))
+
+
+def rglru_decays(uniform, shape, draw):
+    """a for the RG-LRU checks: [0.5, 0.999] (the first version's draw),
+    the model's range exp(-8 softplus(lam) r) for lam in its init span
+    [0.3, 1.5] and r in (0, 1) (models/rglru.py::_gates), or [0, 1] with
+    exact zeros and ones (a tenth each: the kernel's contract)."""
+    import torch
+    import torch.nn.functional as F
+    if draw == "[0.5, 0.999]":
+        return uniform(*shape, lo=0.5, hi=0.999)
+    if draw == "model range":
+        return torch.exp(-8.0 * F.softplus(uniform(*shape, lo=0.3, hi=1.5))
+                         * uniform(*shape, lo=0.0, hi=1.0))
+    a, pick = uniform(*shape, lo=0.0, hi=1.0), uniform(*shape, lo=0.0,
+                                                        hi=1.0)
+    return torch.where(pick < 0.1, 0.0, torch.where(pick > 0.9, 1.0, a))
+
+
+def check_rglru(uniform):
+    """``rglru_scan`` against its plain version (f32 atol 2e-5, rtol 2e-4,
+    one recurrence) at S = 0 and 1, at each edge of the kernel's segment
+    (K) and round (R = 32 K): K - 1, K, K + 1, R - 1, R, R + 1, and at
+    1501, 2048 and 4096 (the hybrid's max_seq); B 1, 3 and 4; W 4096 with
+    h0 and a ragged 1000 (not a multiple of 32 or 4) without; a from the
+    three draws of ``rglru_decays``. Then an Inf case (+Inf, -Inf and NaN
+    exactly where the plain version has them), the kernel timed with a
+    cold L2 at ``RGLRU_TIMED`` beside its bound, and its variants swept."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.rglru import (ROUND, SEGMENT, rglru_scan,
+                                           rglru_scan_plain,
+                                           rglru_scan_variant)
+    K, R = SEGMENT, ROUND
+    shapes = ((1, 0), (3, 0), (1, 1), (4, K - 1), (1, K), (3, K + 1),
+              (4, R - 1), (1, R), (3, R + 1), (1, 1501), (1, 2048),
+              (4, 2048), (3, 4096))
+    tol = TOL["float32"]
+    err, cases = 0.0, 0
+    for draw in ("[0.5, 0.999]", "model range", "[0, 1] with 0 and 1"):
+        for B, S in shapes:
+            for W, with_h0 in ((4096, True), (1000, False)):
+                a = rglru_decays(uniform, (B, S, W), draw)
+                b = uniform(B, S, W, lo=-0.2, hi=0.2)
+                h0 = uniform(B, W, lo=-0.2, hi=0.2) if with_h0 else None
+                h, last = ops.rglru_scan(a, b, h0)
+                ph, plast = rglru_scan_plain(a, b, h0)
+                name = (f"rglru_scan B={B} S={S} W={W} a {draw} h0 "
+                        f"{'!= 0' if with_h0 else 'None'}")
+                if h.shape != (B, S, W) or last.shape != (B, W):
+                    fail(f"{name}: shapes {tuple(h.shape)}, "
+                         f"{tuple(last.shape)}")
+                if S == 0 and not torch.equal(last, plast):
+                    fail(f"{name}: h_last is not h0")
+                for got, want in ((h, ph), (last, plast)):
+                    if got.numel() == 0:
+                        continue
+                    e = (got - want).abs().max().item()
+                    if not torch.allclose(got, want, **tol):
+                        fail(f"{name} disagrees with its plain version: "
+                             f"max_abs_err {e:.3e} (atol {tol['atol']:g} "
+                             f"rtol {tol['rtol']:g})")
+                    err = max(err, e)
+                cases += 1
+        log(f"  rglru_scan, a {draw}: {len(shapes) * 2} cases (S 0 to "
+            f"4096, B 1/3/4, W 4096 with h0 and 1000 without) within atol "
+            f"{tol['atol']:g} rtol {tol['rtol']:g} of the plain version; "
+            f"h_last == h0 at S = 0")
+    log(f"  rglru_scan: {cases} cases, max_abs_err {err:.3e}")
+
+    # an Inf in b: the state is infinite from there on (NaN where +Inf and
+    # -Inf meet in one channel); a in [0.5, 0.999], where no product over
+    # a round underflows to 0
+    B, S, W = 1, 2048, 4096
+    a = rglru_decays(uniform, (B, S, W), "[0.5, 0.999]")
+    b = uniform(B, S, W, lo=-0.2, hi=0.2)
+    h0 = uniform(B, W, lo=-0.2, hi=0.2)
+    for t, c, v in ((5, 0, float("inf")), (R + 9, 1, float("-inf")),
+                    (17, 2, float("inf")), (R + 30, 2, float("-inf")),
+                    (3 * R + K, 1000, float("inf")), (S - 1, 4095,
+                                                      float("-inf"))):
+        b[0, t, c] = v
+    h, last = rglru_scan(a, b, h0)
+    ph, plast = rglru_scan_plain(a, b, h0)
+    for got, want in ((h, ph), (last, plast)):
+        for cls in (torch.isposinf, torch.isneginf, torch.isnan):
+            if not torch.equal(cls(got), cls(want)):
+                fail(f"rglru_scan with Inf in b: {cls.__name__} differs "
+                     "from the plain version's")
+        fin = torch.isfinite(want)
+        if not torch.allclose(got[fin], want[fin], **tol):
+            fail("rglru_scan with Inf in b: the finite outputs disagree")
+    log(f"  rglru_scan with +-Inf in b at 6 places: {int(ph.isposinf().sum())}"
+        f" +Inf, {int(ph.isneginf().sum())} -Inf, {int(ph.isnan().sum())} "
+        "NaN, exactly where the plain version has them; finite elsewhere, "
+        "within tolerance: ok")
+
+    # times, cold L2, with h0; bytes: a, b, h read or written once, h0 and
+    # h_last; one FMA a step and channel
+    def bound(B, S, W):
+        return bound_ms(4 * (3 * B * S * W + 2 * B * W), 2 * B * S * W)
+
+    # beside each, PyTorch's elementwise a + b: the same bytes read and
+    # written, no recurrence (a yardstick of the memory rate a streaming
+    # kernel reaches, not a library call for this function)
+    by_shape = []
+    for B, S, W in RGLRU_TIMED:
+        a = uniform(B, S, W, lo=0.5, hi=0.999)
+        b = uniform(B, S, W, lo=-0.2, hi=0.2)
+        h0 = uniform(B, W, lo=-0.2, hi=0.2)
+        ms = cuda_ms(lambda: rglru_scan(a, b, h0))
+        h = torch.empty_like(a)
+        add_ms = cuda_ms(lambda: torch.add(a, b, out=h))
+        bnd, bound_by = bound(B, S, W)
+        by_shape.append(dict(shape=[B, S, W], ms=ms, bound_ms=bnd,
+                             bound_by=bound_by, elementwise_ms=add_ms))
+        log(f"  rglru_scan [{B},{S},{W}] f32, cold L2: kernel {ms:.4f} ms, "
+            f"bound {bnd:.4f} ms ({bound_by}; {bnd / ms:.0%} of it), "
+            f"elementwise a + b {add_ms:.4f} ms")
+    for B, S, W in ((1, 2048, 4096), (4, 2048, 4096)):
+        a = uniform(B, S, W, lo=0.5, hi=0.999)
+        b = uniform(B, S, W, lo=-0.2, hi=0.2)
+        h0 = uniform(B, W, lo=-0.2, hi=0.2)
+        want = rglru_scan(a, b, h0)[0]
+        times = []
+        for seg, warps in RGLRU_VARIANTS:
+            got = rglru_scan_variant(a, b, h0, seg, warps)[0]
+            if not torch.allclose(got, want, **tol):
+                fail(f"rglru_scan variant K={seg} warps={warps} disagrees")
+            ms = cuda_ms(lambda: rglru_scan_variant(a, b, h0, seg, warps))
+            times.append(f"K={seg} warps={warps} {ms:.4f}")
+        log(f"  rglru_scan variants [{B},{S},{W}], ms cold L2: "
+            + ", ".join(times) + " (launched: K=8 warps=32)")
+
+    B, S, W = 1, 2048, 4096
+    a = uniform(B, S, W, lo=0.5, hi=0.999)
+    b = uniform(B, S, W, lo=-0.2, hi=0.2)
+    h0 = uniform(B, W, lo=-0.2, hi=0.2)
+    main = by_shape[RGLRU_TIMED.index((B, S, W))]
+    plain_ms = cuda_ms(lambda: rglru_scan_plain(a, b, h0), iters=3)
+    log("  rglru_scan launch, device ms per call (torch.profiler, 5 calls "
+        "back to back): " + ", ".join(
+            f"{name} {t:.4f}" for name, t in
+            kernel_times(lambda: rglru_scan(a, b, h0), 5)))
+    log(f"  rglru_scan [{B},{S},{W}] f32: kernel {main['ms']:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {main['bound_ms']:.4f} ms "
+        f"({main['bound_by']}); no single PyTorch call computes the "
+        "recurrence")
+    return dict(
+        max_abs_err=err, ms=main["ms"], plain_ms=plain_ms,
+        bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        library_ms=None,
+        library="none: no single PyTorch call computes the recurrence",
+        shape=f"a/b [{B},{S},{W}] f32, h0 [{B},{W}]", by_shape=by_shape)
+
+
 def phase_recurrent_kernels():
     """The hybrid's and the SSM's kernels against their plain versions at
     the shapes their full-width prefills give them (a 2048-token bucket:
@@ -634,7 +801,7 @@ def phase_recurrent_kernels():
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_plain)
-    from repro_torch.kernels.rglru import rglru_scan, rglru_scan_plain
+    from repro_torch.kernels.rglru import rglru_scan
     from repro_torch.kernels.rwkv6 import wkv_scan, wkv_scan_plain
 
     log("== phase 2b: recurrent kernels and flash at hd 256 vs plain "
@@ -649,38 +816,7 @@ def phase_recurrent_kernels():
         return lo + (hi - lo) * torch.rand(*shape, device=dev, generator=gen)
 
     out = {}
-    # -- rglru_scan: one recurrence, f32 — the kernel's tolerance
-    W = 4096
-    rg_err = 0.0
-    for B, S in ((1, 2048), (1, 1501), (4, 2048), (3, 5)):
-        a = uniform(B, S, W, lo=0.5, hi=0.999)
-        b = randn(B, S, W, scale=0.1)
-        h0 = randn(B, W, scale=0.1)
-        h, last = ops.rglru_scan(a, b, h0)
-        ph, plast = rglru_scan_plain(a, b, h0)
-        rg_err = max(rg_err, check_close(
-            f"rglru_scan B={B} S={S} W={W} h0 != 0", h, ph, "float32"),
-            check_close(f"rglru_scan h_last B={B} S={S}", last, plast,
-                        "float32"))
-    h, last = rglru_scan(a, b)                      # h0 = None: zeros
-    check_close("rglru_scan h0 None", h, rglru_scan_plain(a, b)[0],
-                "float32")
-    B, S = 1, 2048
-    a = uniform(B, S, W, lo=0.5, hi=0.999)
-    b = randn(B, S, W, scale=0.1)
-    h0 = randn(B, W, scale=0.1)
-    bound, bound_by = bound_ms(4 * (3 * B * S * W + 2 * B * W), 2 * B * S * W)
-    ms = cuda_ms(lambda: rglru_scan(a, b, h0))
-    plain_ms = cuda_ms(lambda: rglru_scan_plain(a, b, h0), iters=3)
-    log(f"  rglru_scan [{B},{S},{W}] f32: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.3f} ms, bound {bound:.4f} ms ({bound_by}); no single "
-        "PyTorch call computes the recurrence")
-    out["rglru_scan"] = dict(
-        max_abs_err=rg_err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-        bound_by=bound_by, library_ms=None,
-        library="none: no single PyTorch call computes the recurrence",
-        shape=f"a/b [{B},{S},{W}] f32, h0 [{B},{W}]")
-
+    out["rglru_scan"] = check_rglru(uniform)
     # -- wkv_scan: up to 2,048 steps of state accumulation, compared
     #    relative to the output's scale: f32 rounding (2^-24) over the steps
     #    and the 64-term sums stays far below 1e-4 of the largest value. T
@@ -766,6 +902,8 @@ def phase_recurrent_kernels():
 
     # refusals before any launch
     n0 = (rglru_scan.launches, wkv_scan.launches)
+    a, b, h0 = uniform(1, 16, 64, lo=0.5, hi=0.999), randn(1, 16, 64), \
+        randn(1, 64)
     x = randn(1, 4, 2, 64)
     for what, bad in (
             ("rglru bf16", lambda: rglru_scan(a.bfloat16(), b.bfloat16())),
@@ -1601,7 +1739,8 @@ def phase_ring(server, name, number):
     """Deploy full-width ``name`` over HTTP (max_batch 4, max_seq 4096),
     serve four greedy v2 predicts of 5-1501 tokens and one v1 predict
     sampled at 0.8, all at once; check launches, co-batched == alone, the
-    scoring forward's argmax; profile a decode step; undeploy."""
+    scoring forward's argmax; profile a decode step; undeploy. Returns the
+    served run's launches by kernel, and ``rglru_scan``'s by shape."""
     import torch
     from repro_torch.kernels.decode_attention import (
         decode_attention, paged_decode_attention)
@@ -1653,9 +1792,11 @@ def phase_ring(server, name, number):
                paged_decode_attention)
     for k in kernels:
         k.launches = 0
+    rglru_scan.launches_at.clear()
     s0, p0 = eng.steps_dispatched, eng.prefills_dispatched
     outs, wall = predict_all(server.url, name, requests)
     launches = {k.__name__: k.launches for k in kernels}
+    rglru_at = dict(rglru_scan.launches_at)
     steps = eng.steps_dispatched - s0
     prefills = eng.prefills_dispatched - p0
     del wrapper.format_generation
@@ -1686,6 +1827,13 @@ def phase_ring(server, name, number):
     log(f"  launches: " + ", ".join(f"{k} {n}" for k, n in launches.items())
         + f" ({prefills} prefills, {steps} decode steps; per prefill "
         f"{json.dumps(ring_kernel_counts(cfg))}, none in decode)")
+    # rglru_scan by shape (the wrapper's own count)
+    if sum(rglru_at.values()) != launches["rglru_scan"]:
+        fail(f"rglru_scan launches by shape {rglru_at} do not add up to "
+             f"{launches['rglru_scan']}")
+    for shape, n in sorted(rglru_at.items(), key=lambda i: i[0][1]):
+        log(f"  rglru_scan a/b [{shape[0]},{shape[1]},{shape[2]}]: {n} "
+            "launches")
 
     # greedy outputs are independent of the co-batch: each greedy request
     # alone over HTTP gives the same tokens
@@ -1715,7 +1863,7 @@ def phase_ring(server, name, number):
         "allocated")
     if left > 1.0:
         fail(f"undeploying {name} left {left:.1f} GB allocated")
-    return launches
+    return launches, rglru_at
 
 
 # ---------------------------------------------------------------------------
@@ -2185,8 +2333,8 @@ def main():
                                  "max_batch": 4},
                        service_kw={"batch_window_s": 0.05}).start()
     try:
-        hybrid = phase_ring(server, "recurrentgemma-9b", 5)
-        ssm = phase_ring(server, "rwkv6-7b", 6)
+        hybrid, rglru_at = phase_ring(server, "recurrentgemma-9b", 5)
+        ssm, _ = phase_ring(server, "rwkv6-7b", 6)
     finally:
         server.stop()
     launches["rglru_scan"] = hybrid["rglru_scan"]
@@ -2238,6 +2386,11 @@ def main():
     line[-1]["by_shape"] = [
         row("gmm", gmm_rows[shape], n)
         for shape, n in sorted(gmm_at.items(), key=lambda i: i[0][1:])]
+    # rglru_scan's row: each timed shape with the served run's launches at
+    # it
+    line[list(sources).index("rglru_scan")]["by_shape"] = [
+        {**t, "launches": rglru_at.get(tuple(t["shape"]), 0)}
+        for t in kernels["rglru_scan"]["by_shape"]]
     log("== phase 7: kernels")
     print(json.dumps({"kernels": line}), flush=True)
     print(card, flush=True)

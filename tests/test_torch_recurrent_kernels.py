@@ -27,7 +27,8 @@ from repro.kernels.rglru import rglru_scan as pallas_rglru  # noqa: E402
 from repro.kernels.rwkv6 import wkv_scan as pallas_wkv  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_plain  # noqa: E402
-from repro_torch.kernels.rglru import rglru_scan, rglru_scan_plain  # noqa: E402
+from repro_torch.kernels.rglru import (  # noqa: E402
+    ROUND, SEGMENT, WARPS, rglru_scan, rglru_scan_plain)
 from repro_torch.kernels.rwkv6 import CHUNK, wkv_scan, wkv_scan_plain  # noqa: E402
 
 RGLRU_TOL = dict(atol=1e-5, rtol=1e-4)
@@ -102,6 +103,137 @@ def test_rglru_empty_sequence_keeps_h0():
     h, last = rglru_scan(torch.zeros(2, 0, 8), torch.zeros(2, 0, 8), h0)
     assert h.shape == (2, 0, 8)
     torch.testing.assert_close(last, h0, rtol=0, atol=0)
+
+
+def _rglru_rounds(a, b, h0, K, NW):
+    """A plain mirror of the scan in ``csrc/rglru.cu`` (tests only): rounds
+    of nw segments of K steps, nw the least power of two with nw K >= S, at
+    most NW (steps past S are the identity a = 1, b = 0). In each round,
+    (1) every segment's pair (A, B) from a zero state, A the product of its
+    a's; (2) the nw pairs scanned in the kernel's shuffle order, a later
+    (A, B) after an earlier (A', B') giving (A A', A B' + B), and the carry
+    applied to give each segment's start state and the next carry; (3)
+    each segment's steps replayed from its start state."""
+    B, S, W = a.shape
+    nw = 1
+    while nw < NW and nw * K < S:
+        nw *= 2
+    R = K * nw
+    n = -(-S // R) * R
+    ap, bp = torch.ones(B, n, W), torch.zeros(B, n, W)
+    ap[:, :S], bp[:, :S] = a, b
+    carry = torch.zeros(B, W) if h0 is None else h0.clone()
+    h = torch.empty(B, n, W)
+    steps = torch.arange(nw) * K
+    for t0 in range(0, n, R):
+        ar = ap[:, t0:t0 + R].reshape(B, nw, K, W)
+        br = bp[:, t0:t0 + R].reshape(B, nw, K, W)
+        ca, cb = ar[:, :, 0], br[:, :, 0]                   # (1)
+        for u in range(1, K):
+            ca, cb = ca * ar[:, :, u], ar[:, :, u] * cb + br[:, :, u]
+        off = 1                                             # (2)
+        while off < nw:
+            na, nb = ca.clone(), cb.clone()
+            nb[:, off:] = ca[:, off:] * cb[:, :-off] + cb[:, off:]
+            na[:, off:] = ca[:, off:] * ca[:, :-off]
+            ca, cb, off = na, nb, 2 * off
+        end = ca * carry[:, None] + cb
+        hv = torch.cat([carry[:, None], end[:, :-1]], dim=1)
+        carry = end[:, -1]
+        for u in range(K):                                  # (3)
+            hv = ar[:, :, u] * hv + br[:, :, u]
+            h[:, t0 + steps + u] = hv
+    return h[:, :S], carry
+
+
+def _decays(shape, draw, seed):
+    """a for the RG-LRU tests: [0.5, 0.999] (the first version's draw),
+    the model's range exp(-8 softplus(lam) r) for lam in its init span
+    [0.3, 1.5] and r in (0, 1) (``models/rglru.py::_gates``), or [0, 1]
+    with exact zeros and ones (a tenth each: the kernel's contract)."""
+    rng = np.random.default_rng(seed)
+    if draw == "[0.5, 0.999]":
+        return rng.uniform(0.5, 0.999, size=shape).astype(np.float32)
+    if draw == "model range":
+        lam = rng.uniform(0.3, 1.5, size=shape)
+        r = rng.uniform(0.0, 1.0, size=shape)
+        return np.exp(-8.0 * np.log1p(np.exp(lam)) * r).astype(np.float32)
+    return _w_with_zeros_and_ones(shape, seed)
+
+
+def test_rglru_segment_and_round_are_the_kernels():
+    src = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" /
+           "kernels" / "csrc" / "rglru.cu").read_text()
+    assert f"constexpr int K = {SEGMENT};" in src
+    assert f"constexpr int NW = {WARPS};" in src
+    assert ROUND == SEGMENT * WARPS
+
+
+RGLRU_DRAWS = ["[0.5, 0.999]", "model range", "[0, 1] with 0 and 1"]
+
+
+@pytest.mark.parametrize("S", [SEGMENT - 1, SEGMENT, SEGMENT + 1, ROUND - 1,
+                               ROUND, ROUND + 1])
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("draw", RGLRU_DRAWS)
+def test_rglru_round_algebra_matches_ref_and_pallas(interpret_backend, S,
+                                                    with_h0, draw):
+    """The kernel's segments and rounds at their edges, against
+    ``ref.rglru_ref`` and the Pallas kernel in interpret mode (through the
+    JAX ``ops``, which pads S), at a ragged W (not a multiple of 32)."""
+    B, W = 2, 40
+    a = _decays((B, S, W), draw, 60 + S)
+    if draw == "[0, 1] with 0 and 1":
+        assert (a == 0).any() and (a == 1).any()
+    b, h0 = _arr((B, S, W), 61, scale=0.1), _arr((B, W), 62, scale=0.1)
+    h0 = h0 if with_h0 else None
+    ja, jb = jnp.asarray(a), jnp.asarray(b)
+    jh0 = None if h0 is None else jnp.asarray(h0)
+    want = np.asarray(ref.rglru_ref(ja, jb, jh0))
+    ph, plast = jops.rglru_scan(ja, jb, jh0)
+    h, last = _rglru_rounds(torch.from_numpy(a), torch.from_numpy(b),
+                            None if h0 is None else torch.from_numpy(h0),
+                            SEGMENT, WARPS)
+    for got, ref_h, ref_last in ((h, want, want[:, -1]),
+                                 (h, np.asarray(ph), np.asarray(plast))):
+        np.testing.assert_allclose(got.numpy(), ref_h, **RGLRU_TOL)
+        np.testing.assert_allclose(last.numpy(), ref_last, **RGLRU_TOL)
+
+
+@pytest.mark.parametrize("K,NW", [(1, 1), (2, 4), (4, 32), (16, 16)])
+def test_rglru_round_algebra_at_other_variants(K, NW):
+    """Many rounds: the mirror at short rounds and at the kernel's other
+    variants (K = 4 with 32 warps, K = 16 with 16) equals the sequential
+    plain version, a with exact 0 and 1, with h0."""
+    B, S, W = 2, 300, 8
+    a = torch.from_numpy(_decays((B, S, W), "[0, 1] with 0 and 1", 70))
+    b, h0 = (torch.from_numpy(_arr(s, seed, scale=0.1))
+             for s, seed in (((B, S, W), 71), ((B, W), 72)))
+    h, last = _rglru_rounds(a, b, h0, K, NW)
+    ph, plast = rglru_scan_plain(a, b, h0)
+    np.testing.assert_allclose(h.numpy(), ph.numpy(), **RGLRU_TOL)
+    np.testing.assert_allclose(last.numpy(), plast.numpy(), **RGLRU_TOL)
+
+
+def test_rglru_round_algebra_keeps_infinities_where_the_steps_do():
+    """An Inf in b: the mirror's output is +Inf, -Inf and NaN exactly where
+    the sequential plain version's is (a in [0.5, 0.999], where no product
+    over a round underflows to 0), and equal elsewhere."""
+    B, S, W = 1, 2 * ROUND + 3, 6
+    a = torch.from_numpy(_decays((B, S, W), "[0.5, 0.999]", 80))
+    b = torch.from_numpy(_arr((B, S, W), 81, scale=0.1))
+    b[0, 5, 0] = np.inf                     # +Inf from an early step on
+    b[0, ROUND + 9, 1] = -np.inf            # -Inf in the second round
+    b[0, 17, 2], b[0, ROUND + 30, 2] = np.inf, -np.inf      # NaN after both
+    h, last = _rglru_rounds(a, b, None, SEGMENT, WARPS)
+    ph, plast = rglru_scan_plain(a, b)
+    for got, want in ((h, ph), (last, plast)):
+        for cls in (torch.isposinf, torch.isneginf, torch.isnan):
+            assert torch.equal(cls(got), cls(want))
+        fin = torch.isfinite(want)
+        np.testing.assert_allclose(got[fin].numpy(), want[fin].numpy(),
+                                   **RGLRU_TOL)
+    assert torch.isnan(ph[0, -1, 2]) and torch.isposinf(ph[0, -1, 0])
 
 
 # ---------------------------------------------------------------------------
