@@ -15,7 +15,7 @@ Phases, in order; any failure exits non-zero:
    head_dim 256, at the hybrid's and the SSM's full-width prefill shapes,
    ``rglru_scan`` also at its segment and round edges, three draws of a,
    an Inf case and ragged W, timed at every prefill bucket the hybrid
-   serves beside PyTorch's elementwise a + b, and its variants swept;
+   serves beside PyTorch's elementwise a + b;
    2c: ``gmm`` at every shape phase 8 can give it, a decode step's and
    each prefill bucket's, and at ragged ones, its tensor-core path above
    C = 16 no slower than ``torch.bmm``);
@@ -631,9 +631,6 @@ def check_scaled(name, got, want, rel):
 # hybrid serves (16 to its max_seq 4096), and B = 4
 RGLRU_TIMED = tuple((1, S, 4096) for S in (16, 32, 64, 512, 2048, 4096)) \
     + ((4, 2048, 4096),)
-# the kernel's variants (steps a segment, warps a block) swept at the
-# largest shapes; (8, 32) is the one rglru_scan launches
-RGLRU_VARIANTS = ((4, 32), (8, 32), (8, 16), (16, 16), (16, 8))
 
 
 def rglru_decays(uniform, shape, draw):
@@ -659,14 +656,13 @@ def check_rglru(uniform):
     (K) and round (R = 32 K): K - 1, K, K + 1, R - 1, R, R + 1, and at
     1501, 2048 and 4096 (the hybrid's max_seq); B 1, 3 and 4; W 4096 with
     h0 and a ragged 1000 (not a multiple of 32 or 4) without; a from the
-    three draws of ``rglru_decays``. Then an Inf case (+Inf, -Inf and NaN
-    exactly where the plain version has them), the kernel timed with a
-    cold L2 at ``RGLRU_TIMED`` beside its bound, and its variants swept."""
+    three draws of ``rglru_decays``. Then an Inf case for each draw (+Inf,
+    -Inf and NaN exactly where the plain version has them), and the kernel
+    timed with a cold L2 at ``RGLRU_TIMED`` beside its bound."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.rglru import (ROUND, SEGMENT, rglru_scan,
-                                           rglru_scan_plain,
-                                           rglru_scan_variant)
+                                           rglru_scan_plain)
     K, R = SEGMENT, ROUND
     shapes = ((1, 0), (3, 0), (1, 1), (4, K - 1), (1, K), (3, K + 1),
               (4, R - 1), (1, R), (3, R + 1), (1, 1501), (1, 2048),
@@ -705,31 +701,35 @@ def check_rglru(uniform):
     log(f"  rglru_scan: {cases} cases, max_abs_err {err:.3e}")
 
     # an Inf in b: the state is infinite from there on (NaN where +Inf and
-    # -Inf meet in one channel); a in [0.5, 0.999], where no product over
-    # a round underflows to 0
+    # -Inf meet in one channel, or where an exact a = 0 meets Inf); in the
+    # model's range, products of a over a round underflow to 0, where the
+    # scan's pairs alone would give NaN for the steps' Inf
     B, S, W = 1, 2048, 4096
-    a = rglru_decays(uniform, (B, S, W), "[0.5, 0.999]")
-    b = uniform(B, S, W, lo=-0.2, hi=0.2)
-    h0 = uniform(B, W, lo=-0.2, hi=0.2)
-    for t, c, v in ((5, 0, float("inf")), (R + 9, 1, float("-inf")),
-                    (17, 2, float("inf")), (R + 30, 2, float("-inf")),
-                    (3 * R + K, 1000, float("inf")), (S - 1, 4095,
-                                                      float("-inf"))):
-        b[0, t, c] = v
-    h, last = rglru_scan(a, b, h0)
-    ph, plast = rglru_scan_plain(a, b, h0)
-    for got, want in ((h, ph), (last, plast)):
-        for cls in (torch.isposinf, torch.isneginf, torch.isnan):
-            if not torch.equal(cls(got), cls(want)):
-                fail(f"rglru_scan with Inf in b: {cls.__name__} differs "
-                     "from the plain version's")
-        fin = torch.isfinite(want)
-        if not torch.allclose(got[fin], want[fin], **tol):
-            fail("rglru_scan with Inf in b: the finite outputs disagree")
-    log(f"  rglru_scan with +-Inf in b at 6 places: {int(ph.isposinf().sum())}"
-        f" +Inf, {int(ph.isneginf().sum())} -Inf, {int(ph.isnan().sum())} "
-        "NaN, exactly where the plain version has them; finite elsewhere, "
-        "within tolerance: ok")
+    for draw in ("[0.5, 0.999]", "model range", "[0, 1] with 0 and 1"):
+        a = rglru_decays(uniform, (B, S, W), draw)
+        b = uniform(B, S, W, lo=-0.2, hi=0.2)
+        h0 = uniform(B, W, lo=-0.2, hi=0.2)
+        for t, c, v in ((5, 0, float("inf")), (R + 9, 1, float("-inf")),
+                        (17, 2, float("inf")), (R + 30, 2, float("-inf")),
+                        (3 * R + K, 1000, float("inf")),
+                        (S - 1, 4095, float("-inf"))):
+            b[0, t, c] = v
+        h, last = rglru_scan(a, b, h0)
+        ph, plast = rglru_scan_plain(a, b, h0)
+        for got, want in ((h, ph), (last, plast)):
+            for cls in (torch.isposinf, torch.isneginf, torch.isnan):
+                if not torch.equal(cls(got), cls(want)):
+                    fail(f"rglru_scan with Inf in b, a {draw}: "
+                         f"{cls.__name__} differs from the plain version's "
+                         f"at {int((cls(got) != cls(want)).sum())} places")
+            fin = torch.isfinite(want)
+            if not torch.allclose(got[fin], want[fin], **tol):
+                fail(f"rglru_scan with Inf in b, a {draw}: the finite "
+                     "outputs disagree")
+        log(f"  rglru_scan with +-Inf in b at 6 places, a {draw}: "
+            f"{int(ph.isposinf().sum())} +Inf, {int(ph.isneginf().sum())} "
+            f"-Inf, {int(ph.isnan().sum())} NaN, exactly where the plain "
+            "version has them; finite elsewhere, within tolerance: ok")
 
     # times, cold L2, with h0; bytes: a, b, h read or written once, h0 and
     # h_last; one FMA a step and channel
@@ -753,20 +753,6 @@ def check_rglru(uniform):
         log(f"  rglru_scan [{B},{S},{W}] f32, cold L2: kernel {ms:.4f} ms, "
             f"bound {bnd:.4f} ms ({bound_by}; {bnd / ms:.0%} of it), "
             f"elementwise a + b {add_ms:.4f} ms")
-    for B, S, W in ((1, 2048, 4096), (4, 2048, 4096)):
-        a = uniform(B, S, W, lo=0.5, hi=0.999)
-        b = uniform(B, S, W, lo=-0.2, hi=0.2)
-        h0 = uniform(B, W, lo=-0.2, hi=0.2)
-        want = rglru_scan(a, b, h0)[0]
-        times = []
-        for seg, warps in RGLRU_VARIANTS:
-            got = rglru_scan_variant(a, b, h0, seg, warps)[0]
-            if not torch.allclose(got, want, **tol):
-                fail(f"rglru_scan variant K={seg} warps={warps} disagrees")
-            ms = cuda_ms(lambda: rglru_scan_variant(a, b, h0, seg, warps))
-            times.append(f"K={seg} warps={warps} {ms:.4f}")
-        log(f"  rglru_scan variants [{B},{S},{W}], ms cold L2: "
-            + ", ".join(times) + " (launched: K=8 warps=32)")
 
     B, S, W = 1, 2048, 4096
     a = uniform(B, S, W, lo=0.5, hi=0.999)

@@ -40,44 +40,54 @@
 // nw is the least power of two with nw x K >= S, at most NW = 32: a short
 // prefill launches few warps, and its scan has few steps (a first try
 // scanned one channel a warp, 16 channels in series at S = 16, and lost
-// 2.5 us there). One boundary against the sequential form: where a
-// product of a underflows to 0 the pair forgets an infinite state, which
-// then gives NaN (0 * Inf) where the sequential step keeps Inf; both are
-// non-finite at the same places.
+// 2.5 us there).
 //
-// Variants. rglru_scan_fwd_variant takes K = 4, 8 or 16 and up to 32, 32
-// or 16 warps a block (a power of two; four K-long arrays a thread, at
-// most 64 registers at 1,024 threads). chip_smoke.py phase 2b times them:
-// on an H100 80GB HBM3 at 700 W all lie within 2% of one another at
-// [1, 2048, 4096] and [4, 2048, 4096] except 8 warps of K = 16 (a round
-// of 32 KB in flight, 6% slower at B = 1), and K = 8 with 32 warps,
-// within 6% of PyTorch's elementwise a + b over the same bytes, is the
-// one launched. What is left to the bound is the memory rate a
-// streaming kernel reaches, not the scan. Four channels a lane (float4 loads) would give 128 channels a
-// block and 32 blocks at B = 1, the first version's idle card, and is not
-// built; nor is a split of time across blocks (a decoupled look-back),
-// since one wave already streams at the elementwise rate.
+// Non-finite states. Where a product of a over a span of segments
+// underflows to 0, a pair applied to an infinite state gives NaN (0 * Inf)
+// where the sequential step keeps Inf (tiny * Inf); in the model's range of
+// a, exp(-8 softplus(lam) r), that happens within a round. So the scan
+// votes on NaN at the round's second barrier, and a channel whose start
+// states or next carry hold a NaN has its round walked again in series by
+// one thread, from the carry, before the replay (as gmm recomputes a tile
+// that holds a NaN). A NaN that the steps themselves make (Inf meets -Inf,
+// a = 0 times Inf) comes out of that walk again. On finite data the vote
+// costs what the barrier it replaces did.
+//
+// Variants tried, timed with a cold L2 on an H100 80GB HBM3 at 700 W
+// (chip_smoke.py phase 2b while it swept them; ms at [1, 2048, 4096], then
+// [4, 2048, 4096]): K = 4 with 32 warps 0.0429-0.0432, 0.1470-0.1473;
+// K = 8 with 32 (kept) 0.0423-0.0425, 0.1448-0.1452; K = 8 with 16
+// 0.0428, 0.1464-0.1468; K = 16 with 16 0.0421-0.0425, 0.1441; K = 16
+// with 8 0.0445, 0.1455-0.1459. All lie within 2% of one another except
+// 8 warps of K = 16 at B = 1 (half the loads in flight, 6% slower). K = 8
+// with 32 warps runs within 6% of PyTorch's elementwise a + b over the
+// same bytes: what is left to the bound is the memory rate a streaming
+// kernel reaches, not the scan. Four channels a lane (float4 loads) would
+// give 128 channels a block and 32 blocks at B = 1, the first version's
+// idle card, and is not built; nor is a split of time across blocks (a
+// decoupled look-back), since one wave already streams at the elementwise
+// rate.
 //
 // Interface: plain C, launched on the caller's stream; allocates nothing;
 // returns the CUDA error code after the launch (0 on success), or -1 for
-// bad sizes or a variant that is not built.
+// bad sizes.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int CH = 32;  // channels a block: one a lane
 constexpr int K = 8;    // steps a segment: one warp's share of a round
-constexpr int NW = 32;  // segments (warps) a round
+constexpr int NW = 32;  // segments (warps) a round, at most
 
-// steps t0 .. t0 + SEG - 1 of one channel; the identity past S or W
-template <int SEG>
+// steps t0 .. t0 + K - 1 of one channel; the identity past S or W
 __device__ __forceinline__ void load_segment(
     const float* __restrict__ a, const float* __restrict__ b, size_t base,
-    int t0, int S, int W, bool live, float (&av)[SEG], float (&bv)[SEG]) {
+    int t0, int S, int W, bool live, float (&av)[K], float (&bv)[K]) {
 #pragma unroll
-  for (int u = 0; u < SEG; ++u) {
+  for (int u = 0; u < K; ++u) {
     const int t = t0 + u;
     const bool in = live && t < S;
     av[u] = in ? __ldg(a + base + (size_t)t * W) : 1.f;
@@ -85,21 +95,20 @@ __device__ __forceinline__ void load_segment(
   }
 }
 
-template <int SEG, int MAXW>
-__global__ void __launch_bounds__(MAXW * 32)
+__global__ void __launch_bounds__(NW * 32)
 rglru_scan_kernel(const float* __restrict__ a, const float* __restrict__ b,
                   const float* __restrict__ h0, float* __restrict__ h,
                   float* __restrict__ h_last, int S, int W) {
   // [segment][channel], rows padded by one so a warp reading one channel's
   // segments (a column) hits 32 banks
-  __shared__ float sA[MAXW][CH + 1];
-  __shared__ float sB[MAXW][CH + 1];
-  __shared__ float sH[MAXW][CH + 1];  // each segment's start state
-  __shared__ float carry[CH];         // the state after the last round
+  __shared__ float sA[NW][CH + 1];
+  __shared__ float sB[NW][CH + 1];
+  __shared__ float sH[NW][CH + 1];  // each segment's start state
+  __shared__ float carry[CH];       // the state after the last round
   const int lane = threadIdx.x & 31;
   const int seg = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;  // a power of two
-  const int round = nw * SEG;
+  const int round = nw * K;
   // in the scan, lane = (channel sc, segment sj): warp seg scans the 32 /
   // nw channels from seg * 32 / nw on, nw lanes each
   const int sj = lane & (nw - 1);
@@ -110,23 +119,23 @@ rglru_scan_kernel(const float* __restrict__ a, const float* __restrict__ b,
   const size_t base = (size_t)blockIdx.y * S * W + w;
   const float hinit =
       (threadIdx.x < CH && h0 != nullptr && live) ? __ldg(h0 + row) : 0.f;
-  float an[SEG], bn[SEG];  // the next round's steps, loads in flight
-  load_segment(a, b, base, seg * SEG, S, W, live, an, bn);
+  float an[K], bn[K];  // the next round's steps, loads in flight
+  load_segment(a, b, base, seg * K, S, W, live, an, bn);
   // stored after the first loads are issued, so they wait on it together
   if (threadIdx.x < CH) carry[lane] = hinit;
   for (int t0 = 0; t0 < S; t0 += round) {
-    float ac[SEG], bc[SEG];
+    float ac[K], bc[K];
 #pragma unroll
-    for (int u = 0; u < SEG; ++u) {
+    for (int u = 0; u < K; ++u) {
       ac[u] = an[u];
       bc[u] = bn[u];
     }
     if (t0 + round < S)
-      load_segment(a, b, base, t0 + round + seg * SEG, S, W, live, an, bn);
+      load_segment(a, b, base, t0 + round + seg * K, S, W, live, an, bn);
     // (1) this segment's pair from a zero state
     float pa = ac[0], pb = bc[0];
 #pragma unroll
-    for (int u = 1; u < SEG; ++u) {
+    for (int u = 1; u < K; ++u) {
       pa *= ac[u];
       pb = fmaf(ac[u], pb, bc[u]);
     }
@@ -135,6 +144,7 @@ rglru_scan_kernel(const float* __restrict__ a, const float* __restrict__ b,
     __syncthreads();
     // (2) each channel's nw segment pairs, scanned in log2(nw) shuffle
     //     steps within its group of nw lanes
+    float end;
     {
       float ca = sA[sj][sc], cb = sB[sj][sc];
       for (int off = 1; off < nw; off <<= 1) {
@@ -146,18 +156,41 @@ rglru_scan_kernel(const float* __restrict__ a, const float* __restrict__ b,
         }
       }
       const float hc = carry[sc];
-      const float end = fmaf(ca, hc, cb);  // the state after segment sj
+      end = fmaf(ca, hc, cb);  // the state after segment sj
       const float start = __shfl_up_sync(0xffffffffu, end, 1, nw);
       sH[sj][sc] = sj == 0 ? hc : start;
       if (sj == nw - 1) carry[sc] = end;
     }
-    __syncthreads();
+    // a NaN in some lane's end, so maybe in a start state or the carry:
+    // walk each such channel's round again in series from the carry in,
+    // sH[0]
+    if (__syncthreads_or(isnan(end))) {
+      bool redo = false;
+      if (threadIdx.x < CH && live) {
+        redo = isnan(carry[lane]);
+        for (int s = 0; s < nw; ++s) redo |= isnan(sH[s][lane]);
+      }
+      if (redo) {
+        float hv = sH[0][lane];
+        for (int s = 0; s < nw; ++s) {
+          sH[s][lane] = hv;
+          for (int u = 0; u < K; ++u) {
+            const int t = t0 + s * K + u;
+            if (t < S)
+              hv = fmaf(__ldg(a + base + (size_t)t * W), hv,
+                        __ldg(b + base + (size_t)t * W));
+          }
+        }
+        carry[lane] = hv;
+      }
+      __syncthreads();
+    }
     // (3) replay the segment from its start state
     float hv = sH[seg][lane];
 #pragma unroll
-    for (int u = 0; u < SEG; ++u) {
+    for (int u = 0; u < K; ++u) {
       hv = fmaf(ac[u], hv, bc[u]);
-      const int t = t0 + seg * SEG + u;
+      const int t = t0 + seg * K + u;
       if (live && t < S) h[base + (size_t)t * W] = hv;
     }
   }
@@ -166,42 +199,19 @@ rglru_scan_kernel(const float* __restrict__ a, const float* __restrict__ b,
   if (threadIdx.x < CH && live) h_last[row] = carry[lane];
 }
 
-template <int SEG, int MAXW>
-int launch(const void* a, const void* b, const void* h0, void* h,
-           void* h_last, int B, int S, int W, int warps, void* stream) {
-  if (warps < 1 || warps > MAXW || (warps & (warps - 1)) != 0) return -1;
-  // the least power of two of segments that covers S, at most `warps`
-  int nw = 1;
-  while (nw < warps && nw * SEG < S) nw *= 2;
-  dim3 grid((W + CH - 1) / CH, B);
-  rglru_scan_kernel<SEG, MAXW>
-      <<<grid, nw * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const float*>(a), static_cast<const float*>(b),
-          static_cast<const float*>(h0), static_cast<float*>(h),
-          static_cast<float*>(h_last), S, W);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
-
-// The kernel at segment length `segment` (4, 8 or 16) with up to `warps`
-// warps a block (32, 32 or 16 at most): for sweeps of the variants.
-extern "C" int rglru_scan_fwd_variant(const void* a, const void* b,
-                                      const void* h0, void* h, void* h_last,
-                                      int B, int S, int W, int segment,
-                                      int warps, void* stream) {
-  if (B <= 0 || B > 65535 || S < 0 || W <= 0) return -1;
-  switch (segment) {
-    case 4: return launch<4, 32>(a, b, h0, h, h_last, B, S, W, warps, stream);
-    case 8: return launch<8, 32>(a, b, h0, h, h_last, B, S, W, warps, stream);
-    case 16:
-      return launch<16, 16>(a, b, h0, h, h_last, B, S, W, warps, stream);
-    default: return -1;
-  }
-}
 
 extern "C" int rglru_scan_fwd(const void* a, const void* b, const void* h0,
                               void* h, void* h_last, int B, int S, int W,
                               void* stream) {
-  return rglru_scan_fwd_variant(a, b, h0, h, h_last, B, S, W, K, NW, stream);
+  if (B <= 0 || B > 65535 || S < 0 || W <= 0) return -1;
+  // the least power of two of segments that covers S, at most NW
+  int nw = 1;
+  while (nw < NW && nw * K < S) nw *= 2;
+  dim3 grid((W + CH - 1) / CH, B);
+  rglru_scan_kernel<<<grid, nw * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b),
+      static_cast<const float*>(h0), static_cast<float*>(h),
+      static_cast<float*>(h_last), S, W);
+  return (int)cudaGetLastError();
 }

@@ -21,7 +21,7 @@ import torch
 from repro_torch.kernels import build
 
 SEGMENT = 8     # steps a segment, one warp's share (``csrc/rglru.cu``: K)
-WARPS = 32      # segments a round (``csrc/rglru.cu``: NW)
+WARPS = 32      # segments a round, at most (``csrc/rglru.cu``: NW)
 ROUND = SEGMENT * WARPS
 
 
@@ -41,20 +41,22 @@ def rglru_scan_plain(a, b, h0=None):
     return out, h
 
 
-def _entry(name, n_int):
-    fn = getattr(build.load("rglru"), name)
+def _lib():
+    fn = build.load("rglru").rglru_scan_fwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * n_int + \
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + \
             [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(a, b, h0, entry, *variant):
-    """Check the inputs, allocate the outputs and launch ``entry`` (an entry
-    point of ``csrc/rglru.cu``, given ``variant``'s ints) on the current
-    stream."""
+def rglru_scan(a, b, h0=None):
+    """a, b [B, S, W]; h0 [B, W] or None -> (h [B, S, W], h_last [B, W]).
+
+    On CUDA: f32, contiguous, any S and W (no padding)."""
     tensors = (a, b) if h0 is None else (a, b, h0)
+    if all(t.device.type == "cpu" for t in tensors):
+        return rglru_scan_plain(a, b, h0)
     if not all(t.device.type == "cuda" and t.device == a.device
                for t in tensors):
         raise ValueError("rglru_scan: a, b, h0 must all be on one CUDA "
@@ -71,34 +73,15 @@ def _launch(a, b, h0, entry, *variant):
     B, S, W = a.shape
     h = torch.empty_like(a)
     h_last = torch.empty((B, W), dtype=torch.float32, device=a.device)
-    rc = _entry(entry, 3 + len(variant))(
-        a.data_ptr(), b.data_ptr(), None if h0 is None else h0.data_ptr(),
-        h.data_ptr(), h_last.data_ptr(), B, S, W, *variant,
-        torch.cuda.current_stream(a.device).cuda_stream)
+    rc = _lib()(a.data_ptr(), b.data_ptr(),
+                None if h0 is None else h0.data_ptr(), h.data_ptr(),
+                h_last.data_ptr(), B, S, W,
+                torch.cuda.current_stream(a.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"rglru_scan kernel launch failed (code {rc})")
-    return h, h_last
-
-
-def rglru_scan(a, b, h0=None):
-    """a, b [B, S, W]; h0 [B, W] or None -> (h [B, S, W], h_last [B, W]).
-
-    On CUDA: f32, contiguous, any S and W (no padding)."""
-    tensors = (a, b) if h0 is None else (a, b, h0)
-    if all(t.device.type == "cpu" for t in tensors):
-        return rglru_scan_plain(a, b, h0)
-    h, h_last = _launch(a, b, h0, "rglru_scan_fwd")
     rglru_scan.launches += 1
-    rglru_scan.launches_at[tuple(a.shape)] += 1
+    rglru_scan.launches_at[(B, S, W)] += 1
     return h, h_last
-
-
-def rglru_scan_variant(a, b, h0, segment, warps):
-    """The kernel with ``segment`` steps a segment (4, 8 or 16) and up to
-    ``warps`` warps a block (a power of two; 32, 32 or 16 at most), CUDA
-    tensors only: for sweeping the variants on the card. Not counted in
-    ``launches``."""
-    return _launch(a, b, h0, "rglru_scan_fwd_variant", segment, warps)
 
 
 rglru_scan.launches = 0

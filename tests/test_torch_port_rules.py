@@ -1,7 +1,8 @@
 """Rules of the PyTorch port, checked statically and on the CPU:
 
-- nothing under ``src/repro_torch/`` or in ``chip_smoke.py`` imports JAX or
-  the JAX package (``repro``), and importing the port loads neither;
+- nothing under ``src/repro_torch/``, in ``chip_smoke.py`` or in
+  ``chip_ab.py`` imports JAX or the JAX package (``repro``), and importing
+  the port loads neither;
 - entry points default to ``device="cuda"`` and raise without a GPU
   (no silent CPU fallback), the HTTP front's build path included;
 - each kernel's CUDA source names the TPU kernel it replaces, and the
@@ -21,7 +22,8 @@ torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                     ROOT / "chip_ab.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

@@ -105,14 +105,16 @@ def test_rglru_empty_sequence_keeps_h0():
     torch.testing.assert_close(last, h0, rtol=0, atol=0)
 
 
-def _rglru_rounds(a, b, h0, K, NW):
+def _rglru_rounds(a, b, h0, K, NW, repair=True):
     """A plain mirror of the scan in ``csrc/rglru.cu`` (tests only): rounds
     of nw segments of K steps, nw the least power of two with nw K >= S, at
     most NW (steps past S are the identity a = 1, b = 0). In each round,
     (1) every segment's pair (A, B) from a zero state, A the product of its
     a's; (2) the nw pairs scanned in the kernel's shuffle order, a later
     (A, B) after an earlier (A', B') giving (A A', A B' + B), and the carry
-    applied to give each segment's start state and the next carry; (3)
+    applied to give each segment's start state and the next carry; with
+    ``repair``, a channel whose segment ends hold a NaN has its round's
+    start states and carry walked again in series from the carry; (3)
     each segment's steps replayed from its start state."""
     B, S, W = a.shape
     nw = 1
@@ -139,6 +141,14 @@ def _rglru_rounds(a, b, h0, K, NW):
             ca, cb, off = na, nb, 2 * off
         end = ca * carry[:, None] + cb
         hv = torch.cat([carry[:, None], end[:, :-1]], dim=1)
+        if repair and torch.isnan(end).any():
+            bad, starts, x = torch.isnan(end).any(1), [], carry
+            for j in range(nw):
+                starts.append(x)
+                for u in range(K):
+                    x = ar[:, j, u] * x + br[:, j, u]
+            hv = torch.where(bad[:, None], torch.stack(starts, 1), hv)
+            end[:, -1] = torch.where(bad, x, end[:, -1])
         carry = end[:, -1]
         for u in range(K):                                  # (3)
             hv = ar[:, :, u] * hv + br[:, :, u]
@@ -202,9 +212,9 @@ def test_rglru_round_algebra_matches_ref_and_pallas(interpret_backend, S,
 
 @pytest.mark.parametrize("K,NW", [(1, 1), (2, 4), (4, 32), (16, 16)])
 def test_rglru_round_algebra_at_other_variants(K, NW):
-    """Many rounds: the mirror at short rounds and at the kernel's other
-    variants (K = 4 with 32 warps, K = 16 with 16) equals the sequential
-    plain version, a with exact 0 and 1, with h0."""
+    """Many rounds: the mirror at short rounds and at other segment lengths
+    and warp counts (K = 4 with 32 warps, K = 16 with 16) equals the
+    sequential plain version, a with exact 0 and 1, with h0."""
     B, S, W = 2, 300, 8
     a = torch.from_numpy(_decays((B, S, W), "[0, 1] with 0 and 1", 70))
     b, h0 = (torch.from_numpy(_arr(s, seed, scale=0.1))
@@ -234,6 +244,33 @@ def test_rglru_round_algebra_keeps_infinities_where_the_steps_do():
         np.testing.assert_allclose(got[fin].numpy(), want[fin].numpy(),
                                    **RGLRU_TOL)
     assert torch.isnan(ph[0, -1, 2]) and torch.isposinf(ph[0, -1, 0])
+
+
+@pytest.mark.parametrize("draw", ["model range", "[0, 1] with 0 and 1"])
+def test_rglru_round_repair_keeps_infinities_in_every_draw(draw):
+    """An Inf in b where products of a over a round underflow to 0 (the
+    model's range) or hold exact zeros: the pairs alone give NaN where the
+    steps keep Inf, and the kernel's walk in series of such a channel's
+    round puts +Inf, -Inf and NaN exactly where the sequential plain
+    version has them, and equal values elsewhere."""
+    B, S, W = 1, 2 * ROUND + 3, 6
+    a = torch.from_numpy(_decays((B, S, W), draw, 82))
+    b = torch.from_numpy(_arr((B, S, W), 83, scale=0.1))
+    b[0, 5, 0] = np.inf
+    b[0, ROUND + 9, 1] = -np.inf
+    b[0, 17, 2], b[0, ROUND + 30, 2] = np.inf, -np.inf
+    b[0, 3 * SEGMENT, 4] = np.inf
+    ph, plast = rglru_scan_plain(a, b)
+    h, last = _rglru_rounds(a, b, None, SEGMENT, WARPS)
+    for got, want in ((h, ph), (last, plast)):
+        for cls in (torch.isposinf, torch.isneginf, torch.isnan):
+            assert torch.equal(cls(got), cls(want))
+        fin = torch.isfinite(want)
+        np.testing.assert_allclose(got[fin].numpy(), want[fin].numpy(),
+                                   **RGLRU_TOL)
+    if draw == "model range":
+        bare, _ = _rglru_rounds(a, b, None, SEGMENT, WARPS, repair=False)
+        assert (torch.isnan(bare) & torch.isposinf(ph)).any()
 
 
 # ---------------------------------------------------------------------------
