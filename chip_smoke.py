@@ -32,6 +32,20 @@ Phases, in order; any failure exits non-zero:
    warm replay (tokens equal its first run); check the paged kernel ran on
    every decode and fill step, the linear one never, and that no pool page
    leaks;
+4c. the request lifecycle on the same server: redeploy with a QoS config
+   and stream phase 3's four greedy requests at once (ids equal the
+   contiguous engine's, ``id`` rising by 1, one ``done``), a job read in
+   part, dropped and resumed with ``Last-Event-ID``, a stream of a
+   1,000-token prompt dropped after its first token (cancelled, idle
+   within two chunks, no page leak), ``DELETE`` on a running job, an
+   interactive job admitted before queued best_effort ones (from the
+   traces), a 504 on an unmeetable deadline, a 429 with ``Retry-After``,
+   ``/v2/metrics`` in Prometheus text, a job's trace and the Chrome
+   export, then the sync service on the contiguous layout; hold each
+   dense kernel's launches to its steps or prefills, and the scheduler's
+   host reads to one for each tick that ran a chunk (the ticks from the
+   trace's tick lane; the worker's reads and synchronizing operations
+   counted on the card, none on any other thread);
 5. and 6. the recurrent families, one on the card at a time: deploy
    full-width ``recurrentgemma-9b`` (hybrid), then ``rwkv6-7b`` (SSM), over
    HTTP at ``max_batch`` 4 and ``max_seq`` 4096; serve four greedy v2
@@ -123,6 +137,14 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3, cold: bool = True) -> float:
         e.record()
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
+
+
+def ttft_text(stats) -> str:
+    """The TTFT histogram of a service's stats (seconds, recent-window
+    percentiles) as one log phrase."""
+    t = stats["ttft"]
+    return (f"TTFT p50 {t['p50'] * 1e3:.1f} ms, p95 {t['p95'] * 1e3:.1f} ms "
+            f"({t['count']} requests)")
 
 
 def check_close(name: str, got, want, dtype_name: str) -> float:
@@ -1205,6 +1227,11 @@ def phase_main_path(cfg):
 
     threads = [threading.Thread(target=go, args=(i,))
                for i in range(len(inputs))]
+    # the token ids each request emitted, as the service hands them to the
+    # wrapper's formatter (phase 4c holds streamed ids to them)
+    emitted, fmt = {}, wrapper.format_generation
+    wrapper.format_generation = lambda toks, n: (
+        emitted.setdefault(n, list(toks)), fmt(toks, n))[1]
     steps0 = eng.steps_dispatched
     prefills0 = svc.scheduler.stats.prefills
     flash_attention.launches = 0
@@ -1215,6 +1242,7 @@ def phase_main_path(cfg):
     for t in threads:
         t.join(timeout=600)
     wall = time.perf_counter() - t0
+    del wrapper.format_generation
     launches = {"flash_attention": flash_attention.launches,
                 "decode_attention": decode_attention.launches}
     steps = eng.steps_dispatched - steps0
@@ -1254,8 +1282,7 @@ def phase_main_path(cfg):
         f"{wall:.2f} s ({gen_tokens / wall:.1f} tokens/s end to end); "
         f"scheduler {stats['tokens_per_s']} tokens/s, mean batch "
         f"{stats['mean_batch_size']}, max batch {stats['max_batch_seen']}; "
-        f"TTFT p50 {stats['ttft']['p50_ms']} ms, max "
-        f"{stats['ttft']['max_ms']} ms")
+        f"{ttft_text(stats)}")
     log(f"  launches: flash {launches['flash_attention']} "
         f"({prefills} prefills x {cfg.num_layers} layers), decode "
         f"{launches['decode_attention']} ({steps} decode steps x "
@@ -1272,7 +1299,9 @@ def phase_main_path(cfg):
                  "alone")
     log("  co-batched greedy outputs equal the same requests run alone")
     profile_decode(eng)
-    return launches, inputs[:4], outs[:4]
+    ids = [emitted[len(wrapper.prepare_generation(inp)[0])]
+           for inp in inputs[:4]]
+    return launches, inputs[:4], outs[:4], ids
 
 
 def run_chunk(eng, gen, temps, budgets, k):
@@ -1344,21 +1373,23 @@ def profile_decode(eng, label="contiguous"):
             f"{key[:90]}")
 
 
-def http(url, method, path, payload=None, timeout=600):
+def http(url, method, path, payload=None, timeout=600, headers=None,
+         with_headers=False):
     data = json.dumps(payload).encode() if payload is not None else None
     req = urllib.request.Request(url + path, data,
-                                 {"Content-Type": "application/json"},
-                                 method=method)
+                                 {"Content-Type": "application/json",
+                                  **(headers or {})}, method=method)
     try:
         with urllib.request.urlopen(req, timeout=timeout) as r:
-            return r.status, json.loads(r.read())
+            out = r.status, json.loads(r.read()), dict(r.headers)
     except urllib.error.HTTPError as e:
-        return e.code, json.loads(e.read())
+        out = e.code, json.loads(e.read()), dict(e.headers)
+    return out if with_headers else out[:2]
 
 
-def predict_all(url, name, requests):
-    """POST every (route, input) at once — route "v2" or "v1"; returns
-    (envelopes, wall s)."""
+def predict_all(url, name, requests, clients=None):
+    """POST every (route, input) at once — route "v2" or "v1", the i-th
+    as client ``clients[i]`` when given; returns (envelopes, wall s)."""
     paths = {"v2": f"/v2/model/{name}/predict", "v1": f"/model/{name}/predict"}
     outs = [None] * len(requests)
     gate = threading.Barrier(len(requests))
@@ -1366,7 +1397,9 @@ def predict_all(url, name, requests):
     def go(i):
         route, inp = requests[i]
         gate.wait(timeout=60)
-        outs[i] = http(url, "POST", paths[route], {"input": inp})
+        outs[i] = http(url, "POST", paths[route], {"input": inp},
+                       headers={"X-MAX-Client": clients[i]} if clients
+                       else None)
 
     threads = [threading.Thread(target=go, args=(i,))
                for i in range(len(requests))]
@@ -1404,12 +1437,14 @@ def deploy(url, body):
 
 def ttft_of_next(svc, fn):
     """Run ``fn`` (one request alone) and return its TTFT on the service's
-    clock (submit to the first token's host read)."""
-    n0 = len(svc._ttft_s)
+    clock (submit to the first token's host read), the one observation
+    it adds to the service's TTFT histogram."""
+    h = svc.metrics.histogram("max_ttft_seconds", model=svc.model_id)
+    n0, sum0 = h.count, h.sum
     out = fn()
-    if len(svc._ttft_s) != n0 + 1:
+    if h.count != n0 + 1:
         fail("a solo request did not record one TTFT")
-    return out, svc._ttft_s[-1]
+    return out, h.sum - sum0
 
 
 def check_pool(dep, label):
@@ -1426,124 +1461,115 @@ def check_pool(dep, label):
         f"{cached} cached = {eng.kv_pool_blocks} pages, none in use")
 
 
-def phase_http(cfg, greedy_inputs, contiguous_outs):
+def phase_http(cfg, server, greedy_inputs, contiguous_outs):
     """The HTTP front over the paged pool and the prefix cache, full width:
     every decode and fill step must launch the paged kernel (36 per step)
-    and none the contiguous one."""
-    import torch
-    from repro_torch.core.api import MAXServer
+    and none the contiguous one. ``server`` is left running for phase
+    4c."""
     from repro_torch.kernels.decode_attention import (
         decode_attention, paged_decode_attention)
     from repro_torch.kernels.flash_attention import flash_attention
 
     log("== phase 4: HTTP path (paged KV pool, prefix cache)")
     L = cfg.num_layers
-    server = MAXServer(build_kw={"smoke": False, "max_seq": 2048,
-                                 "max_batch": 4},
-                       service_kw={"batch_window_s": 0.05}).start()
-    try:
-        paged_decode_attention.launches = 0
-        decode_attention.launches = 0
-        flash_attention.launches = 0
-        steps = prefills = 0
+    paged_decode_attention.launches = 0
+    decode_attention.launches = 0
+    flash_attention.launches = 0
+    steps = prefills = 0
 
-        # 1. paged, no prefix cache: the contiguous phase's greedy requests
-        deploy(server.url, {"paged": True})
-        dep = server.manager.get("qwen3-4b")
-        eng = dep.wrapper.engine
-        s0, p0 = eng.steps_dispatched, eng.prefills_dispatched
-        outs, wall = predict_all(server.url, "qwen3-4b",
-                                 [("v2", inp) for inp in greedy_inputs])
-        steps += eng.steps_dispatched - s0
-        prefills += eng.prefills_dispatched - p0
-        for got, want in zip(outs, contiguous_outs):
-            if got["predictions"] != want["predictions"]:
-                fail("paged greedy tokens differ from the contiguous "
-                     "engine's for the same request")
-        toks = sum(e["predictions"][0]["generated_tokens"] for e in outs)
-        log(f"  paged: 4 greedy v2 predicts equal the contiguous engine's "
-            f"tokens; {toks} tokens in {wall:.2f} s "
-            f"({toks / wall:.1f} tokens/s end to end)")
-        check_pool(dep, "paged")
-        dep = eng = None      # the redeploy frees this model's memory first
+    # 1. paged, no prefix cache: the contiguous phase's greedy requests
+    deploy(server.url, {"paged": True})
+    dep = server.manager.get("qwen3-4b")
+    eng = dep.wrapper.engine
+    s0, p0 = eng.steps_dispatched, eng.prefills_dispatched
+    outs, wall = predict_all(server.url, "qwen3-4b",
+                             [("v2", inp) for inp in greedy_inputs])
+    steps += eng.steps_dispatched - s0
+    prefills += eng.prefills_dispatched - p0
+    for got, want in zip(outs, contiguous_outs):
+        if got["predictions"] != want["predictions"]:
+            fail("paged greedy tokens differ from the contiguous "
+                 "engine's for the same request")
+    toks = sum(e["predictions"][0]["generated_tokens"] for e in outs)
+    log(f"  paged: 4 greedy v2 predicts equal the contiguous engine's "
+        f"tokens; {toks} tokens in {wall:.2f} s "
+        f"({toks / wall:.1f} tokens/s end to end)")
+    check_pool(dep, "paged")
+    dep = eng = None      # the redeploy frees this model's memory first
 
-        # 2. paged + prefix cache: four greedy requests sharing a 1,023-
-        #    character prefix (1,024 tokens with BOS: 64 pages), one
-        #    sampled request, then a warm replay
-        deploy(server.url, {"paged": True, "prefix_cache": True})
-        dep = server.manager.get("qwen3-4b")
-        eng, svc = dep.wrapper.engine, dep.service
-        shared = _text(1023, 100)
-        inputs = [{"text": shared + _text(8 + 2 * i, 200 + i),
-                   "max_new_tokens": 32} for i in range(4)]
-        inputs.append({"text": _text(30, 300), "max_new_tokens": 24,
-                       "temperature": 0.8})
-        s0, p0 = eng.steps_dispatched, eng.prefills_dispatched
-        # a cold solo request on another 1,023-character prefix: its TTFT
-        # is the cold one (1,024-token prefill + tail fill)
-        cold_in = {"text": _text(1023, 400) + _text(10, 401),
-                   "max_new_tokens": 8}
-        _, ttft_cold = ttft_of_next(svc, lambda: predict_all(
-            server.url, "qwen3-4b", [("v2", cold_in)]))
-        # the token ids each request emitted, as the service hands them to
-        # the wrapper's formatter (the envelope carries only their text)
-        emitted, fmt = {}, dep.wrapper.format_generation
-        dep.wrapper.format_generation = lambda toks, n: (
-            emitted.setdefault(n, list(toks)), fmt(toks, n))[1]
-        outs, wall = predict_all(server.url, "qwen3-4b",
-                                 [("v2", inp) for inp in inputs])
-        del dep.wrapper.format_generation
-        hits0 = svc.stats()["prefix_cache"]["hit_tokens"]
-        (replay, _), ttft_warm = ttft_of_next(svc, lambda: predict_all(
-            server.url, "qwen3-4b", [("v2", inputs[0])]))
-        steps += eng.steps_dispatched - s0
-        prefills += eng.prefills_dispatched - p0
-        stats = svc.stats()
-        if replay[0]["predictions"] != outs[0]["predictions"]:
-            fail("the warm replay's tokens differ from its first run")
-        if stats["prefix_cache"]["hit_tokens"] - hits0 < 1024:
-            fail("the replay did not hit the 64 cached prefix pages")
-        toks = sum(e["predictions"][0]["generated_tokens"] for e in outs)
-        pc = stats["prefix_cache"]
-        log(f"  prefix: 5 concurrent v2 predicts (4 greedy sharing 1,024 "
-            f"prefix tokens, 1 sampled at 0.8): {toks} tokens in "
-            f"{wall:.2f} s ({toks / wall:.1f} tokens/s end to end); mean "
-            f"batch {stats['mean_batch_size']}, max "
-            f"{stats['max_batch_seen']}")
-        log(f"  prefix: warm replay equals its first run; TTFT cold "
-            f"{ttft_cold * 1e3:.1f} ms (1,024-token prefill + tail fill), "
-            f"warm {ttft_warm * 1e3:.1f} ms (64 cached pages + tail fill)")
-        log(f"  prefix cache: hit tokens {pc['hit_tokens']}, hits "
-            f"{pc['hits']}, misses {pc['misses']}, registered "
-            f"{pc['registered']}, copy-on-write {pc['cow_copies']}, "
-            f"cached pages {pc['cached_pages']}")
-        check_pool(dep, "prefix")
-        log(f"  pool after the run: {json.dumps(stats['kv_cache'])}")
+    # 2. paged + prefix cache: four greedy requests sharing a 1,023-
+    #    character prefix (1,024 tokens with BOS: 64 pages), one
+    #    sampled request, then a warm replay
+    deploy(server.url, {"paged": True, "prefix_cache": True})
+    dep = server.manager.get("qwen3-4b")
+    eng, svc = dep.wrapper.engine, dep.service
+    shared = _text(1023, 100)
+    inputs = [{"text": shared + _text(8 + 2 * i, 200 + i),
+               "max_new_tokens": 32} for i in range(4)]
+    inputs.append({"text": _text(30, 300), "max_new_tokens": 24,
+                   "temperature": 0.8})
+    s0, p0 = eng.steps_dispatched, eng.prefills_dispatched
+    # a cold solo request on another 1,023-character prefix: its TTFT
+    # is the cold one (1,024-token prefill + tail fill)
+    cold_in = {"text": _text(1023, 400) + _text(10, 401),
+               "max_new_tokens": 8}
+    _, ttft_cold = ttft_of_next(svc, lambda: predict_all(
+        server.url, "qwen3-4b", [("v2", cold_in)]))
+    # the token ids each request emitted, as the service hands them to
+    # the wrapper's formatter (the envelope carries only their text)
+    emitted, fmt = {}, dep.wrapper.format_generation
+    dep.wrapper.format_generation = lambda toks, n: (
+        emitted.setdefault(n, list(toks)), fmt(toks, n))[1]
+    outs, wall = predict_all(server.url, "qwen3-4b",
+                             [("v2", inp) for inp in inputs])
+    del dep.wrapper.format_generation
+    hits0 = svc.stats()["prefix_cache"]["hit_tokens"]
+    (replay, _), ttft_warm = ttft_of_next(svc, lambda: predict_all(
+        server.url, "qwen3-4b", [("v2", inputs[0])]))
+    steps += eng.steps_dispatched - s0
+    prefills += eng.prefills_dispatched - p0
+    stats = svc.stats()
+    if replay[0]["predictions"] != outs[0]["predictions"]:
+        fail("the warm replay's tokens differ from its first run")
+    if stats["prefix_cache"]["hit_tokens"] - hits0 < 1024:
+        fail("the replay did not hit the 64 cached prefix pages")
+    toks = sum(e["predictions"][0]["generated_tokens"] for e in outs)
+    pc = stats["prefix_cache"]
+    log(f"  prefix: 5 concurrent v2 predicts (4 greedy sharing 1,024 "
+        f"prefix tokens, 1 sampled at 0.8): {toks} tokens in "
+        f"{wall:.2f} s ({toks / wall:.1f} tokens/s end to end); mean "
+        f"batch {stats['mean_batch_size']}, max "
+        f"{stats['max_batch_seen']}")
+    log(f"  prefix: warm replay equals its first run; TTFT cold "
+        f"{ttft_cold * 1e3:.1f} ms (1,024-token prefill + tail fill), "
+        f"warm {ttft_warm * 1e3:.1f} ms (64 cached pages + tail fill)")
+    log(f"  prefix cache: hit tokens {pc['hit_tokens']}, hits "
+        f"{pc['hits']}, misses {pc['misses']}, registered "
+        f"{pc['registered']}, copy-on-write {pc['cow_copies']}, "
+        f"cached pages {pc['cached_pages']}")
+    check_pool(dep, "prefix")
+    log(f"  pool after the run: {json.dumps(stats['kv_cache'])}")
 
-        launches = {"paged_decode_attention": paged_decode_attention.launches,
-                    "decode_attention": decode_attention.launches,
-                    "flash_attention": flash_attention.launches}
-        if launches["decode_attention"] != 0:
-            fail(f"the paged path launched the contiguous decode kernel "
-                 f"{launches['decode_attention']} times")
-        if launches["paged_decode_attention"] != L * steps or steps == 0:
-            fail(f"paged launches {launches['paged_decode_attention']} != "
-                 f"{L} x {steps} decode and fill steps")
-        if launches["flash_attention"] != L * prefills:
-            fail(f"flash launches {launches['flash_attention']} != {L} x "
-                 f"{prefills} prefills")
-        log(f"  launches: paged {launches['paged_decode_attention']} "
-            f"({steps} decode and fill steps x {L} layers), contiguous "
-            f"decode 0, flash {launches['flash_attention']} ({prefills} "
-            f"prefills x {L} layers)")
-        check_prefix_reference(dep, inputs[:4], emitted)
-        sync_free_paged_chunk(eng)
-        profile_decode(eng, "paged (prefix cache on)")
-        eng.reset()
-    finally:
-        server.stop()
-    gc.collect()
-    torch.cuda.empty_cache()
+    launches = {"paged_decode_attention": paged_decode_attention.launches,
+                "decode_attention": decode_attention.launches,
+                "flash_attention": flash_attention.launches}
+    if launches["decode_attention"] != 0:
+        fail(f"the paged path launched the contiguous decode kernel "
+             f"{launches['decode_attention']} times")
+    if launches["paged_decode_attention"] != L * steps or steps == 0:
+        fail(f"paged launches {launches['paged_decode_attention']} != "
+             f"{L} x {steps} decode and fill steps")
+    if launches["flash_attention"] != L * prefills:
+        fail(f"flash launches {launches['flash_attention']} != {L} x "
+             f"{prefills} prefills")
+    log(f"  launches: paged {launches['paged_decode_attention']} "
+        f"({steps} decode and fill steps x {L} layers), contiguous "
+        f"decode 0, flash {launches['flash_attention']} ({prefills} "
+        f"prefills x {L} layers)")
+    check_prefix_reference(dep, inputs[:4], emitted)
+    sync_free_paged_chunk(eng)
+    profile_decode(eng, "paged (prefix cache on)")
+    eng.reset()
     return launches
 
 
@@ -1620,6 +1646,556 @@ def sync_free_paged_chunk(eng):
     eng.reset()
     log("  one 8-step paged chunk (a page allocated, a table row pushed) "
         "ran under torch.cuda.set_sync_debug_mode('error'): no host sync")
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: the request lifecycle over HTTP
+# ---------------------------------------------------------------------------
+
+# one QoS config for phase 4c's deployment: two requests at once per
+# client, then one every 20 s (every client of the phase but "flood"
+# sends at most two)
+LIFECYCLE_QOS = {"rate": 0.05, "burst": 2}
+
+
+class SyncCounter:
+    """Host syncs by thread name while active: explicit reads of a CUDA
+    tensor (``.cpu``, ``.item``, ``.tolist``, ``.numpy`` and ``bool``,
+    ``int`` or ``float`` of one, through patched ``torch.Tensor``
+    methods) in ``reads``, and every synchronizing CUDA operation that
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports in ``syncs``."""
+
+    NAMES = ("cpu", "item", "tolist", "numpy", "__bool__", "__int__",
+             "__float__")
+
+    def __enter__(self):
+        import collections
+        import warnings
+        import torch
+        self.reads = collections.Counter()
+        self.syncs = collections.Counter()
+        self._orig = {n: getattr(torch.Tensor, n) for n in self.NAMES}
+        for name, orig in self._orig.items():
+            def wrap(t, *a, _orig=orig, **kw):
+                if t.is_cuda:
+                    self.reads[threading.current_thread().name] += 1
+                return _orig(t, *a, **kw)
+            setattr(torch.Tensor, name, wrap)
+        self._warn = warnings.catch_warnings()
+        self._warn.__enter__()
+        warnings.simplefilter("always")
+        show = warnings.showwarning
+        self.where = collections.Counter()
+
+        def count(message, category, *a, **kw):
+            if "synchroniz" in str(message):
+                name = threading.current_thread().name
+                self.syncs[name] += 1
+                # the innermost frame of the port that made the call
+                import traceback
+                port = [f for f in traceback.extract_stack()
+                        if "repro_torch" in f.filename]
+                where = (f"{Path(port[-1].filename).name}:{port[-1].lineno}"
+                         f" {port[-1].line}" if port else "?")
+                self.where[(name, where)] += 1
+            else:
+                show(message, category, *a, **kw)
+        warnings.showwarning = count
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        torch.cuda.set_sync_debug_mode("default")
+        self._warn.__exit__(*exc)
+        for name, orig in self._orig.items():
+            setattr(torch.Tensor, name, orig)
+
+
+def sse_open(url, path, payload=None, headers=None):
+    data = json.dumps(payload).encode() if payload is not None else None
+    req = urllib.request.Request(
+        url + path, data, {"Content-Type": "application/json",
+                           **(headers or {})},
+        method="POST" if payload is not None else "GET")
+    resp = urllib.request.urlopen(req, timeout=600)
+    if resp.headers["Content-Type"] != "text/event-stream" \
+            or resp.headers.get("Content-Length") is not None:
+        fail(f"{path}: not an unsized event stream: {dict(resp.headers)}")
+    return resp
+
+
+def sse_read(resp, t0, limit=None):
+    """[(seconds since ``t0`` at arrival, {"id", "event", "data"})], up to
+    ``limit`` events or the end of the stream."""
+    events, cur = [], {}
+    for raw in resp:
+        line = raw.decode().rstrip("\n")
+        if not line:
+            if cur:
+                events.append((time.perf_counter() - t0, cur))
+                cur = {}
+                if limit is not None and len(events) >= limit:
+                    break
+            continue
+        key, _, val = line.partition(": ")
+        cur[key] = json.loads(val) if key == "data" else val
+    return events
+
+
+def check_stream(label, events, want_ids, want_preds):
+    """One stream's framing and tokens: ``id`` rises by 1 from 0, token
+    events then exactly one ``done`` carrying the predict envelope, and
+    the deltas concatenate to the contiguous engine's ids."""
+    seqs = [int(e["id"]) for _, e in events]
+    kinds = [e["event"] for _, e in events]
+    if seqs != list(range(len(events))):
+        fail(f"{label}: ids {seqs} do not rise by 1 from 0")
+    if kinds.count("done") != 1 or kinds[-1] != "done" \
+            or set(kinds[:-1]) != {"token"}:
+        fail(f"{label}: events {kinds}")
+    ids = [t for _, e in events[:-1] for t in e["data"]["token_ids"]]
+    if ids != want_ids:
+        fail(f"{label}: streamed ids differ from the contiguous engine's")
+    if events[-1][1]["data"]["envelope"]["predictions"] != want_preds:
+        fail(f"{label}: the done envelope differs from predict's")
+    return len(ids)
+
+
+def check_live_gap(label, events, slack_s=0.005):
+    """A live stream's first token event reaches the client a chunk or
+    more before ``done`` (a writer that buffered its frames until the
+    end, or never flushed, delivers them together). A chunk is the mean
+    tick of the request's decode on the service clock, ``decode_ms``
+    over the ``sched_ticks - 1`` ticks after the one that read its first
+    token; ``slack_s`` covers the two frames' different delivery delays.
+    Returns (gap, chunk) in seconds."""
+    usage = events[-1][1]["data"]["usage"]
+    if usage["sched_ticks"] < 2:
+        fail(f"{label}: one tick, no chunk between the first token and "
+             f"done: {usage}")
+    chunk = usage["decode_ms"] / 1e3 / (usage["sched_ticks"] - 1)
+    gap = events[-1][0] - events[0][0]
+    if gap < chunk - slack_s:
+        fail(f"{label}: the first token event arrived {gap * 1e3:.3f} ms "
+             f"before done, under one chunk ({chunk * 1e3:.3f} ms)")
+    return gap, chunk
+
+
+def wait_until(pred, what, timeout_s=300):
+    deadline = time.perf_counter() + timeout_s
+    while not pred():
+        if time.perf_counter() > deadline:
+            fail(f"timed out waiting for {what}")
+        time.sleep(0.005)
+
+
+def job_state(url, jid):
+    code, body = http(url, "GET", f"/v2/jobs/{jid}")
+    if code != 200:
+        fail(f"GET /v2/jobs/{jid}: {code} {body}")
+    return body["job"]
+
+
+def submit_job(url, inp, client, **qos):
+    code, body = http(url, "POST", "/v2/model/qwen3-4b/jobs",
+                      {"input": inp, **qos}, headers={"X-MAX-Client": client})
+    if code != 202:
+        fail(f"job submit {inp} answered {code} {body}")
+    return body["job"]["id"]
+
+
+def validate_chrome(events):
+    """The subset of the Chrome trace-event schema the export uses."""
+    if not isinstance(events, list) or not events:
+        fail("trace export: no traceEvents")
+    for ev in events:
+        ok = (ev.get("ph") in ("X", "C", "M", "i")
+              and isinstance(ev.get("pid"), int)
+              and isinstance(ev.get("tid"), int) and ev.get("name"))
+        if ev["ph"] == "X":
+            ok = ok and ev["ts"] >= 0 and ev["dur"] > 0
+        elif ev["ph"] == "C":
+            ok = ok and bool(ev.get("args"))
+        elif ev["ph"] == "i":
+            ok = ok and ev.get("s") in ("t", "p", "g")
+        if not ok:
+            fail(f"trace export: bad event {ev}")
+
+
+def parse_prometheus(text):
+    """{series: value} of a text exposition; fails on a malformed line."""
+    import re
+    line_re = re.compile(
+        r'^([a-zA-Z_:][a-zA-Z0-9_:]*(?:\{[^{}]*\})?) '
+        r'(-?[0-9.]+(?:e[+-]?[0-9]+)?|NaN|[+-]Inf)$')
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("# HELP ") \
+                or line.startswith("# TYPE "):
+            continue
+        m = line_re.match(line)
+        if m is None:
+            fail(f"/v2/metrics?format=prometheus: bad line {line!r}")
+        out[m.group(1)] = float(m.group(2))
+    return out
+
+
+def phase_lifecycle(cfg, server, card, greedy_inputs, contiguous_outs,
+                    contiguous_ids):
+    """Phase 4c: streams, jobs with resume and cancel, QoS admission,
+    metrics, tracing and the sync service, over phase 4's server at full
+    width. Returns the three dense kernels' launches in this phase."""
+    import socket
+    import struct
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, paged_decode_attention)
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    log("== phase 4c: the request lifecycle over HTTP")
+    L, url = cfg.num_layers, server.url
+    paged_decode_attention.launches = 0
+    decode_attention.launches = 0
+    flash_attention.launches = 0
+    t_phase = time.perf_counter()
+
+    def at():
+        return f" [{time.perf_counter() - t_phase:.1f} s into 4c]"
+    env = deploy(url, {"paged": True, "prefix_cache": True,
+                       "qos": LIFECYCLE_QOS})
+    if env["qos"]["rate"] != LIFECYCLE_QOS["rate"]:
+        fail(f"the deploy did not take the QoS config: {env['qos']}")
+    dep = server.manager.get("qwen3-4b")
+    svc, eng = dep.service, dep.wrapper.engine
+    ss = svc.scheduler.stats
+    ttft_h = svc.metrics.histogram("max_ttft_seconds", model="qwen3-4b")
+    s0, p0 = eng.steps_dispatched, eng.prefills_dispatched
+    ticks0, reads0, chunks0 = ss.ticks, ss.host_reads, ss.chunks
+    ttft0, generating = ttft_h.count, 0
+    counter = SyncCounter()
+    with counter:
+        # a. four greedy streams at once, then the same as predicts
+        res = [None] * 4
+        gate = threading.Barrier(4)
+
+        def stream(i):
+            gate.wait(timeout=60)
+            t0 = time.perf_counter()
+            with sse_open(url, "/v2/model/qwen3-4b/stream",
+                          {"input": greedy_inputs[i]},
+                          {"X-MAX-Client": f"a{i}"}) as r:
+                res[i] = sse_read(r, t0)
+
+        threads = [threading.Thread(target=stream, args=(i,))
+                   for i in range(4)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall_streams = time.perf_counter() - t0
+        if any(r is None for r in res):
+            fail("a stream did not finish")
+        toks_streams = sum(
+            check_stream(f"stream {i}", res[i], contiguous_ids[i],
+                         contiguous_outs[i]["predictions"])
+            for i in range(4))
+        gaps = [check_live_gap(f"stream {i}", res[i]) for i in range(4)]
+        ttft_streams = [r[0][0] for r in res]
+        # the same TTFT on the service's clock (submit to the first
+        # token's host read), from each stream's done usage
+        ttft_served = [r[-1][1]["data"]["usage"]["ttft_ms"] for r in res]
+        n0 = ttft_h.count
+        outs, wall_predicts = predict_all(
+            url, "qwen3-4b", [("v2", inp) for inp in greedy_inputs],
+            clients=[f"a{i}" for i in range(4)])
+        for got, want in zip(outs, contiguous_outs):
+            if got["predictions"] != want["predictions"]:
+                fail("4c predict tokens differ from the contiguous engine's")
+        # the predicts' own TTFT observations (service clock: submit to
+        # the first token's host read), the newest of the histogram
+        ttft_predicts = list(ttft_h._ring)[-(ttft_h.count - n0):]
+        toks_predicts = sum(e["predictions"][0]["generated_tokens"]
+                            for e in outs)
+        generating += 8
+        log(f"  a. 4 concurrent streams equal the contiguous engine's ids "
+            f"and predict's envelopes; ids rise by 1, one done each; "
+            f"first token event before done by "
+            f"{', '.join(f'{g * 1e3:.1f}' for g, _ in gaps)} ms, chunks "
+            f"{', '.join(f'{c * 1e3:.1f}' for _, c in gaps)} ms")
+        log(f"  a. streams: first token event at "
+            f"{', '.join(f'{t * 1e3:.1f}' for t in ttft_streams)} ms "
+            f"(client clock), TTFT "
+            f"{', '.join(f'{t:.1f}' for t in ttft_served)} ms (service "
+            f"clock); predicts after them (prefix hits on the streams' "
+            f"pages): TTFT "
+            f"{', '.join(f'{t * 1e3:.1f}' for t in sorted(ttft_predicts))}"
+            f" ms (service clock) [{card}]")
+        log(f"  a. 4 streams {toks_streams} tokens in {wall_streams:.2f} s "
+            f"({toks_streams / wall_streams:.1f} tokens/s); 4 predicts "
+            f"{toks_predicts} tokens in {wall_predicts:.2f} s "
+            f"({toks_predicts / wall_predicts:.1f} tokens/s) [{card}]{at()}")
+
+        # b. a job: three events, disconnect, resume with Last-Event-ID
+        jid = submit_job(url, greedy_inputs[1], "job")
+        t0 = time.perf_counter()
+        r = sse_open(url, f"/v2/jobs/{jid}/events")
+        head = sse_read(r, t0, limit=3)
+        r.close()
+        last = head[-1][1]["id"]
+        with sse_open(url, f"/v2/jobs/{jid}/events",
+                      headers={"Last-Event-ID": last}) as r:
+            tail = sse_read(r, t0)
+        check_stream("job events, resumed", head + tail, contiguous_ids[1],
+                     contiguous_outs[1]["predictions"])
+        wait_until(lambda: job_state(url, jid)["state"] == "done",
+                   "the job to finish")
+        job = job_state(url, jid)
+        if job["result"]["predictions"] != contiguous_outs[1]["predictions"]:
+            fail("the job's result differs from predict's")
+        generating += 1
+        log(f"  b. job {jid}: read {len(head)} events, disconnected, "
+            f"resumed after id {last}: {len(head) + len(tail)} events with "
+            f"no gap or duplicate; the result equals predict's{at()}")
+
+        # c. cancel by disconnect: a 1,000-token prompt asking for 1,024,
+        #    the socket reset after its first token event; the cancel's
+        #    call and return are stamped (host clock, chunks done)
+        cancelled0 = ss.cancelled
+        marks, cancel = [], svc.scheduler.cancel
+
+        def stamped_cancel(rid):
+            marks.append((time.perf_counter(), ss.chunks))
+            out = cancel(rid)
+            marks.append((time.perf_counter(), ss.chunks))
+            return out
+        svc.scheduler.cancel = stamped_cancel
+        body = json.dumps({"input": {"text": _text(999, 500),
+                                     "max_new_tokens": 1024}}).encode()
+        host, port = server._server.server_address[:2]
+        sock = socket.create_connection((host, port))
+        try:
+            sock.sendall(
+                f"POST /v2/model/qwen3-4b/stream HTTP/1.1\r\n"
+                f"Host: {host}\r\nContent-Type: application/json\r\n"
+                f"X-MAX-Client: cancel\r\n"
+                f"Content-Length: {len(body)}\r\n\r\n".encode() + body)
+            buf = b""
+            while b"event: token" not in buf or not buf.endswith(b"\n\n"):
+                chunk = sock.recv(65536)
+                if not chunk:
+                    fail(f"the cancel stream closed early: {buf[:200]!r}")
+                buf += chunk
+        finally:
+            chunks_at_drop = ss.chunks
+            t_drop = time.perf_counter()
+            sock.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER,
+                            struct.pack("ii", 1, 0))
+            sock.close()
+        wait_until(svc.idle, "the service to go idle after the drop")
+        idle_s = time.perf_counter() - t_drop
+        after = ss.chunks - chunks_at_drop
+        del svc.scheduler.cancel
+        log(f"  c. cancel called {(marks[0][0] - t_drop) * 1e3:.1f} ms after "
+            f"the drop ({marks[0][1] - chunks_at_drop} chunks), marked "
+            f"{(marks[1][0] - t_drop) * 1e3:.1f} ms after it "
+            f"({marks[1][1] - chunks_at_drop} chunks)" if len(marks) == 2
+            else f"  c. cancel calls: {marks}")
+        if ss.cancelled != cancelled0 + 1:
+            fail(f"the drop cancelled {ss.cancelled - cancelled0} requests")
+        if after > 2:
+            fail(f"{after} chunks ran after the drop before the service "
+                 "went idle (at most two)")
+        check_pool(dep, "c. after the dropped stream")
+        generating += 1
+        log(f"  c. dropped stream: cancelled, the service idle "
+            f"{idle_s * 1e3:.0f} ms and {after} chunk(s) after the drop")
+        jid_del = submit_job(url, {"text": _text(20, 501),
+                                   "max_new_tokens": 1024}, "del")
+        wait_until(lambda: job_state(url, jid_del)["state"] == "running",
+                   "the job to run")
+        code, out = http(url, "DELETE", f"/v2/jobs/{jid_del}")
+        if code != 200 or out.get("cancelled") != jid_del:
+            fail(f"DELETE on a running job answered {code} {out}")
+        wait_until(lambda: job_state(url, jid_del)["state"] != "running",
+                   "the cancelled job to finish")
+        job = job_state(url, jid_del)
+        with sse_open(url, f"/v2/jobs/{jid_del}/events") as r:
+            kinds = [e["event"] for _, e in sse_read(r, time.perf_counter())]
+        if job["state"] != "cancelled" or "done" in kinds \
+                or kinds[-1] != "error":
+            fail(f"DELETE: state {job['state']}, events {kinds}")
+        wait_until(svc.idle, "the service to go idle after DELETE")
+        check_pool(dep, "c. after DELETE")
+        generating += 1
+        log(f"  c. DELETE on a running job: state cancelled after "
+            f"{sum(k == 'token' for k in kinds)} token events, never done"
+            f"{at()}")
+
+        # d. priority: four best_effort jobs hold the batch, two more
+        #    queue, then one interactive job; a deadline that cannot be
+        #    met; a per-client rate limit
+        holders = [submit_job(url, {"text": _text(12, 600 + i),
+                                    "max_new_tokens": 24 if i == 0 else 40},
+                              f"be{i}", priority="best_effort")
+                   for i in range(4)]
+        wait_until(lambda: all(job_state(url, j)["state"] == "running"
+                               for j in holders), "four running holders")
+        queued = [submit_job(url, {"text": _text(12, 610 + i),
+                                   "max_new_tokens": 8}, f"be{4 + i}",
+                             priority="best_effort") for i in range(2)]
+        vip = submit_job(url, {"text": _text(12, 620), "max_new_tokens": 8},
+                         "vip", priority="interactive")
+        code, out, hdrs = http(url, "POST", "/v2/model/qwen3-4b/predict",
+                               {"input": {"text": "late",
+                                          "max_new_tokens": 4},
+                                "deadline_ms": 1},
+                               headers={"X-MAX-Client": "late"},
+                               with_headers=True)
+        if code != 504 or out["error"]["code"] != "DEADLINE_EXCEEDED":
+            fail(f"an unmeetable deadline answered {code} {out}")
+        for j in holders + queued + [vip]:
+            wait_until(lambda j=j: job_state(url, j)["state"] == "done",
+                       f"job {j}")
+        ticks = {}
+        for j in queued + [vip]:
+            code, tr = http(url, "GET", f"/v2/jobs/{j}/trace")
+            admits = [e for e in tr["trace"]["events"] if e["name"] == "admit"]
+            ticks[j] = admits[0]["attrs"]["tick"]
+        if not ticks[vip] < min(ticks[j] for j in queued):
+            fail(f"the interactive job was admitted at tick {ticks[vip]}, "
+                 f"the queued best_effort ones at "
+                 f"{[ticks[j] for j in queued]}")
+        generating += 7
+        log(f"  d. interactive admitted at tick {ticks[vip]}, before the "
+            f"queued best_effort at ticks {[ticks[j] for j in queued]}; "
+            f"deadline_ms 1 behind a held batch: 504 DEADLINE_EXCEEDED")
+        flood = [http(url, "POST", "/v2/model/qwen3-4b/predict",
+                      {"input": {"text": "x", "max_new_tokens": 1}},
+                      headers={"X-MAX-Client": "flood"}, with_headers=True)
+                 for _ in range(3)]
+        if [f[0] for f in flood] != [200, 200, 429] \
+                or flood[2][1]["error"]["code"] != "RATE_LIMITED" \
+                or not flood[2][2].get("Retry-After"):
+            fail(f"the rate limit answered {[f[:2] for f in flood]}")
+        generating += 2
+        log(f"  d. a third request at once from one client: 429 "
+            f"RATE_LIMITED, Retry-After {flood[2][2]['Retry-After']}{at()}")
+
+        # e. metrics
+        wait_until(svc.idle, "the service to go idle")
+        code, text, _ = http_text(url, "/v2/metrics?format=prometheus")
+        series = parse_prometheus(text)
+        n_ttft = series['max_ttft_seconds_count{model="qwen3-4b"}'] - ttft0
+        if n_ttft != generating:
+            fail(f"max_ttft_seconds counted {n_ttft} requests in this "
+                 f"phase, {generating} generated tokens")
+        kv = svc.stats()["kv_cache"]
+        gauges = (series['max_kv_pool_blocks_in_use{model="qwen3-4b"}'],
+                  series['max_kv_pool_blocks_total{model="qwen3-4b"}'])
+        if gauges != (kv["blocks_in_use"], kv["pool_blocks"]):
+            fail(f"KV pool gauges {gauges} differ from stats {kv}")
+        log(f"  e. /v2/metrics?format=prometheus: {len(series)} series "
+            f"parse; max_ttft_seconds counted {int(n_ttft)} requests, the "
+            f"phase's generating ones; KV pool gauges equal stats")
+
+        # f. tracing
+        code, tr = http(url, "GET", f"/v2/jobs/{jid}/trace")
+        ph = tr["trace"]["phases"]
+        gap = abs(ph["queue_ms"] + ph["prefill_ms"] + ph["decode_ms"]
+                  - ph["e2e_ms"])
+        if code != 200 or gap > 1.0:
+            fail(f"job trace: phases {ph} (gap {gap} ms)")
+        code, export = http(url, "GET", "/v2/trace/export")
+        validate_chrome(export["traceEvents"])
+        # the scheduler's tick lane: every tick of this deployment, and
+        # the ones that dispatched a chunk (each must read the device once)
+        tick_lane = [e for e in export["traceEvents"]
+                     if e["ph"] == "X" and e.get("cat") == "scheduler"]
+        chunk_ticks = sum(e["args"]["chunk_k"] > 0 for e in tick_lane)
+        log(f"  f. job trace phases sum to e2e {ph['e2e_ms']} ms within "
+            f"{gap:.3f} ms; /v2/trace/export: "
+            f"{len(export['traceEvents'])} Chrome trace events{at()}")
+
+    # h. the batched deployment's launches and host reads
+    steps = eng.steps_dispatched - s0
+    prefills = eng.prefills_dispatched - p0
+    ticks, reads = ss.ticks - ticks0, ss.host_reads - reads0
+    chunks = ss.chunks - chunks0
+    worker = f"batched-{svc.model_id}"
+    others = {k: v for k, v in (counter.reads + counter.syncs).items()
+              if k not in (worker, "MainThread")}
+    log(f"  h. batched: {ticks} ticks ({chunk_ticks} with a chunk, by the "
+        f"trace's tick lane), {chunks} chunks, {reads} host reads; on the "
+        f"worker {counter.reads[worker]} explicit reads and "
+        f"{counter.syncs[worker]} synchronizing operations")
+    if len(tick_lane) != ticks:
+        fail(f"the trace holds {len(tick_lane)} ticks, the scheduler {ticks}")
+    if not (reads == chunk_ticks == chunks and counter.reads[worker] == reads
+            and counter.syncs[worker] == reads):
+        for (name, where), n in counter.where.most_common():
+            log(f"    {n} synchronizing operations on {name} at {where}")
+        fail("the scheduler read the device more than once a tick")
+    if others:
+        fail(f"threads other than the worker touched the device: {others}")
+    b_paged, b_decode = (paged_decode_attention.launches,
+                         decode_attention.launches)
+    b_flash = flash_attention.launches
+    if b_decode != 0:
+        fail(f"the batched deployment launched contiguous decode {b_decode}")
+    if b_paged != L * steps or b_flash != L * prefills or steps == 0:
+        fail(f"batched launches: paged {b_paged} for {steps} steps, flash "
+             f"{b_flash} for {prefills} prefills ({L} layers)")
+    dep = svc = eng = ss = None
+
+    # g. the sync service on the contiguous layout
+    code, env = http(url, "POST", "/v2/model/qwen3-4b/deploy",
+                     {"service": "sync"})
+    if code != 200 or env["service"] != "sync" or env["kv_cache"]["paged"]:
+        fail(f"sync deploy answered {code} {env}")
+    eng = server.manager.get("qwen3-4b").wrapper.engine
+    s1, p1 = eng.steps_dispatched, eng.prefills_dispatched
+    code, got = http(url, "POST", "/v2/model/qwen3-4b/predict",
+                     {"input": greedy_inputs[1]})
+
+    def strip(preds):
+        return [{k: v for k, v in p.items() if k != "ttft_ms"}
+                for p in preds]
+    want = contiguous_outs[1]["predictions"]
+    if code != 200 or strip(got["predictions"]) != want:
+        fail(f"the sync predict differs from the batched deployment's: "
+             f"{got}")
+    with sse_open(url, "/v2/model/qwen3-4b/stream",
+                  {"input": greedy_inputs[1]}) as r:
+        events = [e for _, e in sse_read(r, time.perf_counter())]
+    if [(e["event"], e["id"]) for e in events] != [("token", "0"),
+                                                   ("done", "1")] \
+            or events[0]["data"]["text"] != want[0]["generated_text"] \
+            or strip(events[1]["data"]["envelope"]["predictions"]) != want:
+        fail(f"the sync stream is not the whole-result fallback: {events}")
+    sync_steps = eng.steps_dispatched - s1
+    sync_prefills = eng.prefills_dispatched - p1
+    s_decode = decode_attention.launches
+    s_flash = flash_attention.launches - b_flash
+    if paged_decode_attention.launches != b_paged \
+            or s_decode != L * sync_steps or s_flash != L * sync_prefills:
+        fail(f"sync launches: contiguous {s_decode} for {sync_steps} steps, "
+             f"flash {s_flash} for {sync_prefills} prefills")
+    log(f"  g. sync service, contiguous layout: predict equals the batched "
+        f"deployment's tokens; its stream is one token event and done{at()}")
+    log(f"  h. launches: batched paged {b_paged} ({steps} decode and fill "
+        f"steps x {L}), flash {b_flash} ({prefills} prefills x {L}), "
+        f"contiguous 0; sync contiguous {s_decode} ({sync_steps} steps x "
+        f"{L}), flash {s_flash} ({sync_prefills} prefills x {L})")
+    log(f"  phase 4c took {time.perf_counter() - t_phase:.1f} s")
+    return {"paged_decode_attention": b_paged,
+            "decode_attention": s_decode,
+            "flash_attention": b_flash + s_flash}
+
+
+def http_text(url, path):
+    with urllib.request.urlopen(url + path, timeout=600) as r:
+        return r.status, r.read().decode(), dict(r.headers)
 
 
 # ---------------------------------------------------------------------------
@@ -1808,8 +2384,7 @@ def phase_ring(server, name, number):
     log(f"  {len(requests)} concurrent requests (4 v2 greedy, 1 v1 "
         f"sampled), {toks} tokens in {wall:.2f} s ({toks / wall:.1f} "
         f"tokens/s end to end); mean batch {stats['mean_batch_size']}, max "
-        f"{stats['max_batch_seen']}; TTFT p50 {stats['ttft']['p50_ms']} ms, "
-        f"max {stats['ttft']['max_ms']} ms")
+        f"{stats['max_batch_seen']}; {ttft_text(stats)}")
     log(f"  launches: " + ", ".join(f"{k} {n}" for k, n in launches.items())
         + f" ({prefills} prefills, {steps} decode steps; per prefill "
         f"{json.dumps(ring_kernel_counts(cfg))}, none in decode)")
@@ -2164,8 +2739,7 @@ def phase_moe(gmm_checked):
             f"sampled), {toks} tokens in {wall:.2f} s "
             f"({toks / wall:.1f} tokens/s end to end); mean batch "
             f"{stats['mean_batch_size']}, max {stats['max_batch_seen']}; "
-            f"TTFT p50 {stats['ttft']['p50_ms']} ms, max "
-            f"{stats['ttft']['max_ms']} ms")
+            f"{ttft_text(stats)}")
         log(f"  launches: gmm {launches['gmm']} (3 x {L} layers x "
             f"({prefills} prefills + {steps} decode and fill steps)), flash "
             f"{launches['flash_attention']}, paged decode "
@@ -2305,16 +2879,29 @@ def main():
     kernels.update(phase_recurrent_kernels())
     gmm_rows = phase_gmm_kernel()
     kernels["gmm"] = gmm_rows[moe_gmm_shapes()[0]]    # a decode's gate/up
-    launches, greedy_inputs, greedy_outs = phase_main_path(cfg)
+    launches, greedy_inputs, greedy_outs, greedy_ids = phase_main_path(cfg)
     gc.collect()
     torch.cuda.empty_cache()
-    http_launches = phase_http(cfg, greedy_inputs, greedy_outs)
+    from repro_torch.core.api import MAXServer
+    server = MAXServer(build_kw={"smoke": False, "max_seq": 2048,
+                                 "max_batch": 4},
+                       service_kw={"batch_window_s": 0.05}).start()
+    try:
+        http_launches = phase_http(cfg, server, greedy_inputs, greedy_outs)
+        life = phase_lifecycle(cfg, server, card, greedy_inputs, greedy_outs,
+                               greedy_ids)
+    finally:
+        server.stop()
+    gc.collect()
+    torch.cuda.empty_cache()
     launches["paged_decode_attention"] = \
         http_launches["paged_decode_attention"]
+    # phase 4c's launches join each kernel's total on its path
+    for name, n in life.items():
+        launches[name] += n
     if torch.cuda.memory_allocated() > 1e9:
         fail(f"{torch.cuda.memory_allocated() / 1e9:.1f} GB still allocated "
              "before the recurrent families")
-    from repro_torch.core.api import MAXServer
     server = MAXServer(build_kw={"smoke": False, "max_seq": 4096,
                                  "max_batch": 4},
                        service_kw={"batch_window_s": 0.05}).start()

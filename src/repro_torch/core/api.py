@@ -22,17 +22,35 @@ decode batches by the deployment's ``BatchedService``):
 
     GET    /v2/models                  -> catalogue + deployment status
     POST   /v2/model/{id}/predict      -> single input
+    POST   /v2/model/{id}/stream       -> SSE token stream (event: token /
+                                          done / error; disconnect cancels)
     POST   /v2/model/{id}/predict_batch-> explicit multi-input
-    POST   /v2/model/{id}/deploy       -> deploy (paged KV / prefix cache)
+    POST   /v2/model/{id}/jobs         -> async submit (202 + job id)
+    GET    /v2/jobs/{job_id}           -> poll a job
+    GET    /v2/jobs/{job_id}/events    -> attach to a job's SSE stream
+                                          (resume: Last-Event-ID/?from_seq=)
+    DELETE /v2/jobs/{job_id}           -> cancel a queued/running job;
+                                          drop a finished job's record
+    GET    /v2/jobs/{job_id}/trace     -> a job's span timeline
+    GET    /v2/trace/export            -> Chrome trace-event JSON
+    POST   /v2/model/{id}/deploy       -> deploy (service mode, qos, paged
+                                          KV / prefix cache, trace knobs)
     DELETE /v2/model/{id}              -> undeploy
     GET    /v2/model/{id}/stats        -> service-level stats
+    GET    /v2/metrics                 -> serving metrics (JSON, or
+                                          Prometheus text with
+                                          ?format=prometheus)
     GET    /v2/routes                  -> the route table itself
 
-Not ported yet, and absent from the table: SSE streams, jobs, traces,
-metrics and ``/v2/health``. A body field of an unported feature (QoS on a
-predict; ``qos``, ``replicas``, ``mesh_slice``, the trace knobs,
-``faults``, ``brownout`` or ``service: "sync"`` on a deploy) answers 501
-``NOT_IMPLEMENTED`` naming the field and does nothing else.
+QoS: v2 predict/predict_batch/stream/jobs bodies accept ``priority``
+(interactive | batch | best_effort), ``client`` (the ``X-MAX-Client``
+header wins over the body field) and ``deadline_ms`` (shed with
+``DEADLINE_EXCEEDED`` if the request cannot start in time).
+
+Not ported yet, and absent from the table: ``/v2/health``. A deploy body
+field of an unported feature (``replicas``, ``mesh_slice``, ``faults``,
+``brownout``) answers 501 ``NOT_IMPLEMENTED`` naming the field and does
+nothing else.
 
 Every 429/503 carries ``Retry-After``. Implemented on the stdlib
 ``ThreadingHTTPServer``. Deployments build on ``device="cuda"`` unless
@@ -51,7 +69,10 @@ from urllib.parse import parse_qsl
 from repro_torch.core.assets import EXCHANGE
 from repro_torch.core.deployment import DeploymentManager
 from repro_torch.core.registry import ModelRegistry
-from repro_torch.core.router import RequestCtx, Response, Router
+from repro_torch.core.router import RequestCtx, Response, Router, StreamEvent
+from repro_torch.core.service import ServiceOverloaded
+from repro_torch.core.wrapper import MAXError, PromptTooLong
+from repro_torch.serving.qos import PRIORITIES, AdmissionError
 
 API_VERSION = "v1"          # of the back-compat surface
 API_VERSIONS = ("v1", "v2")
@@ -64,9 +85,12 @@ ERROR_STATUS = {
     "INVALID_INPUT": 400,
     "MODEL_NOT_FOUND": 404,
     "NOT_DEPLOYED": 404,
+    "JOB_NOT_FOUND": 404,
+    "TRACE_NOT_FOUND": 404,
     "NOT_FOUND": 404,
     "METHOD_NOT_ALLOWED": 405,
     "QUEUE_FULL": 429,
+    "RATE_LIMITED": 429,
     # prompt + generated tokens reached the deployment's max_seq
     "MAX_SEQ_EXCEEDED": 400,
     # the prompt alone leaves no generation headroom
@@ -80,23 +104,24 @@ ERROR_STATUS = {
     # a field of a feature the port does not serve yet
     "NOT_IMPLEMENTED": 501,
     "TIMEOUT": 504,
+    "DEADLINE_EXCEEDED": 504,
 }
 
 # body fields of unported features, by route
-UNPORTED_PREDICT_FIELDS = ("priority", "client", "deadline_ms")
-UNPORTED_DEPLOY_FIELDS = ("qos", "replicas", "mesh_slice", "trace",
-                          "trace_buffer", "slow_trace_ms", "faults",
-                          "brownout")
+UNPORTED_PREDICT_FIELDS = ()
+UNPORTED_DEPLOY_FIELDS = ("replicas", "mesh_slice", "faults", "brownout")
 
 
 class ApiError(Exception):
     """Client-visible failure with a structured code; formatted per API
     generation by the dispatcher (flat string for v1, object for v2)."""
 
-    def __init__(self, code: str, message: str):
+    def __init__(self, code: str, message: str,
+                 retry_after_s: Optional[float] = None):
         super().__init__(message)
         self.code = code
         self.status = ERROR_STATUS.get(code, 400)
+        self.retry_after_s = retry_after_s
 
 
 def _v1_error(message: str) -> Dict[str, Any]:
@@ -131,6 +156,24 @@ _ENVELOPE_SCHEMA = {
 }
 _INPUT_SCHEMA = {"type": "object", "properties": {"input": {}},
                  "required": ["input"]}
+_QOS_PROPS = {
+    "priority": {"type": "string", "enum": list(PRIORITIES)},
+    "client": {"type": "string",
+               "description": "fairness/rate-limit identity "
+                              "(X-MAX-Client header wins)"},
+    "deadline_ms": {"type": "number",
+                    "description": "shed if not started within this budget"},
+}
+_INPUT_SCHEMA_V2 = {"type": "object",
+                    "properties": {"input": {}, **_QOS_PROPS},
+                    "required": ["input"]}
+_SSE_SCHEMA = {
+    "type": "string",
+    "description": "server-sent events: `id: <seq>` / `event: "
+                   "token|done|error` / `data: <json>` frames; token data "
+                   "carries {token_ids, text}, done carries "
+                   "{envelope, usage}, error carries {code, message}",
+}
 
 
 def build_router(server: Optional["MAXServer"] = None) -> Router:
@@ -166,25 +209,62 @@ def build_router(server: Optional["MAXServer"] = None) -> Router:
           summary="Catalogue with deployment/service status")
     r.add("POST", "/v2/model/{model_id}/predict", h("_h_predict_v2"),
           summary="Predict; concurrent requests are micro-batched into "
-                  "engine decode batches",
-          request_schema=_INPUT_SCHEMA, response_schema=_ENVELOPE_SCHEMA)
+                  "engine decode batches (QoS: priority/client/deadline_ms)",
+          request_schema=_INPUT_SCHEMA_V2, response_schema=_ENVELOPE_SCHEMA)
     r.add("POST", "/v2/model/{model_id}/predict_batch",
           h("_h_predict_batch_v2"),
           summary="Explicit multi-input predict",
           request_schema={"type": "object",
-                          "properties": {"inputs": {"type": "array"}},
+                          "properties": {"inputs": {"type": "array"},
+                                         **_QOS_PROPS},
                           "required": ["inputs"]})
+    r.add("POST", "/v2/model/{model_id}/stream", h("_h_stream_v2"),
+          summary="Streaming predict: server-sent events — `token` deltas "
+                  "with monotone ids, terminal `done` (envelope + usage) "
+                  "or `error` (structured code); disconnecting cancels "
+                  "the generation (QoS fields as /predict)",
+          request_schema=_INPUT_SCHEMA_V2,
+          response_schema=_SSE_SCHEMA, response_media="text/event-stream")
+    r.add("POST", "/v2/model/{model_id}/jobs", h("_h_job_submit"),
+          summary="Submit an async generation job",
+          request_schema=_INPUT_SCHEMA_V2)
+    r.add("GET", "/v2/jobs/{job_id}", h("_h_job_get"),
+          summary="Poll an async job")
+    r.add("GET", "/v2/jobs/{job_id}/events", h("_h_job_events"),
+          summary="Attach to a job's event stream (SSE); resume with "
+                  "Last-Event-ID or ?from_seq= from the job's bounded "
+                  "replay buffer",
+          response_schema=_SSE_SCHEMA, response_media="text/event-stream")
+    r.add("DELETE", "/v2/jobs/{job_id}", h("_h_job_delete"),
+          summary="Cancel a queued/running job (it finishes with state "
+                  "'cancelled' and its decode slot frees at the next "
+                  "chunk boundary); on a finished job, delete the record")
+    r.add("GET", "/v2/jobs/{job_id}/trace", h("_h_job_trace"),
+          summary="Span timeline for a job's request: queue/prefill/decode "
+                  "phases, QoS decision, deferred park/unpark, prefix-cache "
+                  "hit tokens vs cold prefill, per-chunk emission, stalls")
+    r.add("GET", "/v2/trace/export", h("_h_trace_export"),
+          summary="Chrome-trace-event JSON across all deployments (load in "
+                  "Perfetto / chrome://tracing): per-slot lanes, scheduler "
+                  "ticks, KV-pool and prefix-cache occupancy counters")
     r.add("POST", "/v2/model/{model_id}/deploy", h("_h_deploy_v2"),
-          summary="Deploy an asset (optional {'service': batched|auto,"
-                  " 'paged': bool, 'page_size': int, 'kv_pool_blocks': int,"
-                  " 'prefix_cache': bool, 'prefix_cache_pages': int} — the"
-                  " kv knobs select the paged KV cache layout, the prefix"
-                  " knobs enable content-addressed KV page sharing on top"
-                  " of it)")
+          summary="Deploy an asset (optional {'service': sync|batched|auto,"
+                  " 'qos': {...}, 'paged': bool, 'page_size': int,"
+                  " 'kv_pool_blocks': int, 'prefix_cache': bool,"
+                  " 'prefix_cache_pages': int, 'trace': bool,"
+                  " 'trace_buffer': int, 'slow_trace_ms': number} — the kv"
+                  " knobs select the paged KV cache layout, the prefix knobs"
+                  " enable content-addressed KV page sharing on top of it,"
+                  " and the trace knobs size request-lifecycle tracing /"
+                  " slow-request capture)")
     r.add("DELETE", "/v2/model/{model_id}", h("_h_undeploy"),
           summary="Undeploy an asset")
     r.add("GET", "/v2/model/{model_id}/stats", h("_h_stats_v2"),
-          summary="Service-level stats (batching, queue, KV cache)")
+          summary="Service-level stats (batching, queue, jobs, QoS)")
+    r.add("GET", "/v2/metrics", h("_h_metrics"),
+          summary="Serving metrics: requests by class/outcome, queue-wait "
+                  "percentiles, shed counts (?format=prometheus for text "
+                  "exposition)")
     r.add("GET", "/v2/routes", h("_h_routes"),
           summary="The route table (source of truth for this spec)")
     return r
@@ -251,6 +331,8 @@ class MAXServer:
         self.auto_deploy = auto_deploy
         self.build_kw = build_kw or {}
         self.router = build_router(self)
+        self._job_index: Dict[str, str] = {}     # job id -> asset id
+        self._job_lock = threading.Lock()
         outer = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -259,17 +341,70 @@ class MAXServer:
 
             def _send(self, code: int, payload: Dict[str, Any],
                       headers: Optional[Dict[str, str]] = None):
-                body = json.dumps(payload).encode()
+                # a handler may return a pre-rendered non-JSON body (the
+                # Prometheus exposition) through the _raw escape hatch
+                if isinstance(payload, dict) and "_raw" in payload:
+                    body = payload["_raw"].encode()
+                    ctype = payload.get("_content_type", "text/plain")
+                else:
+                    body = json.dumps(payload).encode()
+                    ctype = "application/json"
                 self.send_response(code)
-                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Type", ctype)
                 self.send_header("Content-Length", str(len(body)))
                 for k, v in (headers or {}).items():
                     self.send_header(k, v)
                 self.end_headers()
                 self.wfile.write(body)
 
+            def _send_sse(self, resp: Response):
+                """Incremental SSE frames. No Content-Length: the HTTP/1.0
+                connection close delimits the stream. A failed write (the
+                client went away) closes the event iterator, which is how
+                a disconnect reaches the scheduler (the service generator
+                sees GeneratorExit)."""
+                self.send_response(resp.status)
+                self.send_header("Content-Type", "text/event-stream")
+                self.send_header("Cache-Control", "no-cache")
+                self.send_header("X-Accel-Buffering", "no")
+                for k, v in resp.headers.items():
+                    self.send_header(k, v)
+                self.end_headers()
+                events = resp.events
+                last_seq = -1
+                try:
+                    while True:
+                        try:
+                            ev = next(events)
+                        except StopIteration:
+                            break
+                        except Exception as e:   # event-source fault:
+                            # structured last frame; reuse last_seq so a
+                            # reconnecting client's Last-Event-ID does not
+                            # regress
+                            ev = StreamEvent(
+                                "error", {"code": "INTERNAL",
+                                          "message": str(e)}, last_seq)
+                            events = iter(())
+                        last_seq = ev.seq
+                        frame = (f"id: {ev.seq}\n"
+                                 f"event: {ev.event}\n"
+                                 f"data: {json.dumps(ev.data)}\n\n")
+                        try:
+                            self.wfile.write(frame.encode())
+                            self.wfile.flush()
+                        except OSError:          # client disconnected
+                            break
+                finally:
+                    close = getattr(resp.events, "close", None)
+                    if close is not None:
+                        close()
+
             def _respond(self, resp: Response):
-                self._send(resp.status, resp.body, resp.headers)
+                if resp.streaming:
+                    self._send_sse(resp)
+                else:
+                    self._send(resp.status, resp.body, resp.headers)
 
             def _hdrs(self):
                 return {k.lower(): v for k, v in self.headers.items()}
@@ -326,6 +461,8 @@ class MAXServer:
                                          headers=headers or {})))
         except ApiError as e:
             payload = _v2_error(e.code, str(e)) if v2 else _v1_error(str(e))
+            if v2 and e.retry_after_s is not None:
+                payload["error"]["retry_after_s"] = e.retry_after_s
             resp = Response(e.status, payload)
         except Exception as e:          # container fault isolation
             payload = _v2_error("INTERNAL", str(e)) if v2 \
@@ -364,6 +501,35 @@ class MAXServer:
         return body["input"]
 
     @staticmethod
+    def _require_qos(ctx) -> Optional[Dict[str, Any]]:
+        """Request-scoped QoS fields: body ``priority`` / ``client`` /
+        ``deadline_ms`` plus the ``X-MAX-Client`` header (the header wins:
+        proxies inject it, bodies are client-authored). None when the
+        request carries no QoS at all (the service applies defaults)."""
+        body = ctx.body if isinstance(ctx.body, dict) else {}
+        qos: Dict[str, Any] = {}
+        priority = body.get("priority")
+        if priority is not None:
+            if not isinstance(priority, str):
+                raise ApiError("INVALID_INPUT", "'priority' must be a string")
+            qos["priority"] = priority
+        client = ctx.headers.get("x-max-client") or body.get("client")
+        if client is not None:
+            if not isinstance(client, str) or not client:
+                raise ApiError("INVALID_INPUT",
+                               "'client' must be a non-empty string")
+            qos["client"] = client
+        deadline_ms = body.get("deadline_ms")
+        if deadline_ms is not None:
+            if (isinstance(deadline_ms, bool)
+                    or not isinstance(deadline_ms, (int, float))
+                    or deadline_ms <= 0):
+                raise ApiError("INVALID_INPUT",
+                               "'deadline_ms' must be a positive number")
+            qos["deadline_s"] = float(deadline_ms) / 1e3
+        return qos or None
+
+    @staticmethod
     def _reject_unported(body: Any, fields) -> None:
         """501 for the first non-null body field of a feature the port
         does not serve yet, before anything else happens."""
@@ -384,6 +550,8 @@ class MAXServer:
             return ERROR_STATUS["CANCELLED"], env
         code = env.get("code", "INVALID_INPUT")
         out = _v2_error(code, str(env.get("error", "prediction failed")))
+        if isinstance(env.get("retry_after_s"), (int, float)):
+            out["error"]["retry_after_s"] = env["retry_after_s"]
         if "model_id" in env:
             out["model_id"] = env["model_id"]
         return ERROR_STATUS.get(code, 400), out
@@ -451,8 +619,61 @@ class MAXServer:
     def _h_predict_v2(self, ctx) -> Tuple[int, Dict[str, Any]]:
         inp = self._require_input(ctx.body)
         self._reject_unported(ctx.body, UNPORTED_PREDICT_FIELDS)
+        qos = self._require_qos(ctx)
         dep = self._ensure_deployed(ctx.params["model_id"])
-        return self._v2_envelope(dep.predict(inp))
+        return self._v2_envelope(dep.predict(inp, qos))
+
+    def _h_stream_v2(self, ctx) -> Response:
+        """SSE predict: input/QoS validation failures are plain JSON 4xx
+        (the stream never opened); after validation everything, admission
+        rejection included, arrives as SSE events."""
+        inp = self._require_input(ctx.body)
+        self._reject_unported(ctx.body, UNPORTED_PREDICT_FIELDS)
+        qos = self._require_qos(ctx)
+        dep = self._ensure_deployed(ctx.params["model_id"])
+        return Response.sse(dep.predict_stream(inp, qos))
+
+    def _job_model(self, job_id: str) -> str:
+        with self._job_lock:
+            model_id = self._job_index.get(job_id)
+        if model_id is None:
+            raise ApiError("JOB_NOT_FOUND", f"unknown job {job_id!r}")
+        return model_id
+
+    def _job_service(self, job_id: str):
+        model_id = self._job_model(job_id)
+        try:
+            return model_id, self.manager.get(model_id).service
+        except KeyError:
+            raise ApiError("JOB_NOT_FOUND",
+                           f"job {job_id!r} no longer exists "
+                           f"(model {model_id!r} undeployed?)") from None
+
+    def _h_job_events(self, ctx) -> Response:
+        job_id = ctx.params["job_id"]
+        model_id = self._job_model(job_id)
+        # resume cursor: Last-Event-ID is the last seq the client SAW
+        # (deliver strictly after it); ?from_seq= is the first seq to
+        # deliver (inclusive)
+        from_seq = 0
+        last_id = ctx.headers.get("last-event-id")
+        try:
+            if ctx.query.get("from_seq") is not None:
+                from_seq = int(ctx.query["from_seq"])
+            elif last_id is not None:
+                from_seq = int(last_id) + 1
+        except ValueError:
+            raise ApiError("INVALID_INPUT",
+                           "from_seq / Last-Event-ID must be integers") \
+                from None
+        try:
+            events = self.manager.get(model_id).service.job_events(
+                job_id, max(0, from_seq))
+        except KeyError:
+            raise ApiError("JOB_NOT_FOUND",
+                           f"job {job_id!r} no longer exists "
+                           f"(model {model_id!r} undeployed?)") from None
+        return Response.sse(events)
 
     def _h_predict_batch_v2(self, ctx) -> Tuple[int, Dict[str, Any]]:
         if not isinstance(ctx.body, dict) or "inputs" not in ctx.body:
@@ -462,12 +683,100 @@ class MAXServer:
             raise ApiError("INVALID_INPUT",
                            "'inputs' must be a non-empty array")
         self._reject_unported(ctx.body, UNPORTED_PREDICT_FIELDS)
+        qos = self._require_qos(ctx)
         dep = self._ensure_deployed(ctx.params["model_id"])
         results = [self._v2_envelope(env)[1]
-                   for env in dep.predict_batch(inputs)]
+                   for env in dep.predict_batch(inputs, qos)]
         ok = sum(1 for r in results if r.get("status") == "ok")
         return 200, {"status": "ok" if ok == len(results) else "partial",
                      "results": results, "count": len(results)}
+
+    def _h_job_submit(self, ctx) -> Tuple[int, Dict[str, Any]]:
+        inp = self._require_input(ctx.body)
+        self._reject_unported(ctx.body, UNPORTED_PREDICT_FIELDS)
+        qos = self._require_qos(ctx)
+        model_id = ctx.params["model_id"]
+        dep = self._ensure_deployed(model_id)
+        try:
+            job = dep.submit_job(inp, qos)
+        except ServiceOverloaded as e:
+            raise ApiError("QUEUE_FULL", str(e)) from None
+        except AdmissionError as e:
+            raise ApiError(e.code, str(e),
+                           retry_after_s=getattr(e, "retry_after_s", None)
+                           ) from None
+        except PromptTooLong as e:
+            raise ApiError("PROMPT_TOO_LONG", str(e)) from None
+        except MAXError as e:
+            raise ApiError("INVALID_INPUT", str(e)) from None
+        with self._job_lock:
+            self._job_index[job.id] = model_id
+            while len(self._job_index) > 4096:   # bounded, like job records
+                self._job_index.pop(next(iter(self._job_index)))
+        return 202, {"status": "ok", "job": job.to_json(),
+                     "poll": f"/v2/jobs/{job.id}"}
+
+    def _h_job_get(self, ctx) -> Tuple[int, Dict[str, Any]]:
+        job_id = ctx.params["job_id"]
+        model_id, service = self._job_service(job_id)
+        try:
+            job = service.get_job(job_id)
+        except KeyError:
+            raise ApiError("JOB_NOT_FOUND",
+                           f"job {job_id!r} no longer exists "
+                           f"(model {model_id!r} undeployed?)") from None
+        return 200, {"status": "ok", "job": job.to_json()}
+
+    def _h_job_delete(self, ctx) -> Tuple[int, Dict[str, Any]]:
+        """DELETE on a queued or running job cancels it (the job finishes
+        with state 'cancelled', its decode slot frees at the next chunk
+        boundary and is backfilled); a finished job's record is dropped."""
+        job_id = ctx.params["job_id"]
+        try:
+            _, service = self._job_service(job_id)
+        except ApiError:
+            with self._job_lock:    # undeployed: records are gone anyway
+                self._job_index.pop(job_id, None)
+            raise
+        if service.cancel_job(job_id):
+            # the record survives so the client can poll the cancelled state
+            return 200, {"status": "ok", "cancelled": job_id,
+                         "poll": f"/v2/jobs/{job_id}"}
+        deleted = service.delete_job(job_id)
+        with self._job_lock:
+            self._job_index.pop(job_id, None)
+        if not deleted:
+            raise ApiError("JOB_NOT_FOUND",
+                           f"job {job_id!r} no longer exists") from None
+        return 200, {"status": "ok", "deleted": job_id}
+
+    def _h_job_trace(self, ctx) -> Tuple[int, Dict[str, Any]]:
+        """The request's span timeline; cancelled, shed and exhausted jobs
+        have one too (every retire path records a complete trace)."""
+        job_id = ctx.params["job_id"]
+        model_id, service = self._job_service(job_id)
+        try:
+            trace = service.get_trace(job_id)
+        except KeyError as e:
+            raise ApiError("TRACE_NOT_FOUND", str(e).strip("'\"")) from None
+        return 200, {"status": "ok", "job_id": job_id,
+                     "model_id": model_id, "trace": trace}
+
+    def _h_trace_export(self, ctx) -> Tuple[int, Dict[str, Any]]:
+        """Chrome-trace-event JSON for every traced deployment, one
+        Perfetto process per model (all tracers share one clock)."""
+        events = []
+        pid = 0
+        for asset_id in self.manager.deployed():
+            try:
+                service = self.manager.get(asset_id).service
+            except KeyError:
+                continue            # undeployed between list and get
+            if service.tracer is not None:
+                pid += 1
+                events.extend(service.tracer.to_chrome(
+                    pid=pid, process_name=asset_id))
+        return 200, {"traceEvents": events, "displayTimeUnit": "ms"}
 
     @staticmethod
     def _engine_knobs(body: Dict[str, Any]) -> Dict[str, Any]:
@@ -509,6 +818,40 @@ class MAXServer:
             engine_kw.setdefault("paged", True)
         return engine_kw
 
+    @staticmethod
+    def _trace_knobs(body: Dict[str, Any]) -> Dict[str, Any]:
+        """The request-tracing knobs of a v2 deploy body: service-level
+        overrides, validated as the JAX package validates them."""
+        out: Dict[str, Any] = {}
+        if body.get("trace") is not None:
+            if not isinstance(body["trace"], bool):
+                raise ApiError("INVALID_INPUT", "'trace' must be a boolean")
+            out["trace"] = body["trace"]
+        if body.get("trace_buffer") is not None:
+            v = body["trace_buffer"]
+            if isinstance(v, bool) or not isinstance(v, int) or v <= 0:
+                raise ApiError("INVALID_INPUT",
+                               "'trace_buffer' must be a positive integer")
+            if out.get("trace") is False:
+                raise ApiError("INVALID_INPUT",
+                               "'trace_buffer' conflicts with "
+                               "'trace': false")
+            out["trace_buffer"] = v
+            out.setdefault("trace", True)
+        if body.get("slow_trace_ms") is not None:
+            v = body["slow_trace_ms"]
+            if isinstance(v, bool) or not isinstance(v, (int, float)) \
+                    or v <= 0:
+                raise ApiError("INVALID_INPUT",
+                               "'slow_trace_ms' must be a positive number")
+            if out.get("trace") is False:
+                raise ApiError("INVALID_INPUT",
+                               "'slow_trace_ms' conflicts with "
+                               "'trace': false")
+            out["slow_trace_ms"] = float(v)
+            out.setdefault("trace", True)
+        return out
+
     def _h_deploy_v2(self, ctx) -> Tuple[int, Dict[str, Any]]:
         body = ctx.body if isinstance(ctx.body, dict) else {}
         self._reject_unported(body, UNPORTED_DEPLOY_FIELDS)
@@ -516,10 +859,9 @@ class MAXServer:
         if mode is not None and mode not in ("sync", "batched", "auto"):
             raise ApiError("INVALID_INPUT",
                            f"unknown service mode {mode!r}")
-        if mode == "sync":
-            raise ApiError("NOT_IMPLEMENTED",
-                           "'service': 'sync' is not implemented by the "
-                           "PyTorch port yet")
+        qos = body.get("qos")
+        if qos is not None and not isinstance(qos, dict):
+            raise ApiError("INVALID_INPUT", "'qos' must be an object")
         engine_kw = self._engine_knobs(body)
         if engine_kw.get("paged"):
             # the engine's page_size/max_seq rule, checked BEFORE the
@@ -531,17 +873,25 @@ class MAXServer:
                     "INVALID_INPUT",
                     f"page_size {page} must divide the deployment's "
                     f"max_seq {max_seq}")
+        service_overrides = self._trace_knobs(body)
         try:
             dep = self.manager.deploy(ctx.params["model_id"],
-                                      service_mode=mode,
-                                      force=bool(engine_kw),
+                                      service_mode=mode, qos=qos,
+                                      force=bool(engine_kw)
+                                      or bool(service_overrides),
+                                      service_overrides=service_overrides
+                                      or None,
                                       **{**self.build_kw, **engine_kw})
         except KeyError as e:
             raise ApiError("MODEL_NOT_FOUND", str(e)) from None
-        except ValueError as e:     # mode infeasible for this wrapper
+        except ValueError as e:     # mode/qos infeasible for this wrapper
             raise ApiError("INVALID_INPUT", str(e)) from None
+        cfg = dep.service.qos_cfg
         out = {"status": "ok", "model_id": dep.asset_id,
                "service": dep.service.kind, "replicas": 1,
+               "qos": {"policy": cfg.policy, "rate": cfg.rate,
+                       "max_queue_per_class": cfg.max_queue,
+                       "class_weights": dict(cfg.class_weights)},
                "deployed": self.manager.deployed()}
         engine = getattr(dep.wrapper, "engine", None)
         if engine is not None:
@@ -568,6 +918,18 @@ class MAXServer:
                      "requests": dep.stats.requests,
                      "errors": dep.stats.errors,
                      "mean_latency_ms": round(dep.stats.mean_latency_ms, 2)}
+
+    def _h_metrics(self, ctx) -> Tuple[int, Dict[str, Any]]:
+        reg = self.manager.metrics
+        if ctx.query.get("format") == "prometheus":
+            return 200, {"_raw": reg.to_prometheus(),
+                         "_content_type": "text/plain; version=0.0.4"}
+        out = reg.to_json()
+        tokens = sum(v for k, v in out["counters"].items()
+                     if k.startswith("max_generated_tokens_total"))
+        out["derived"] = {
+            "tokens_per_s": round(tokens / max(out["uptime_s"], 1e-9), 3)}
+        return 200, {"status": "ok", "metrics": out}
 
     def _h_routes(self, ctx) -> Tuple[int, Dict[str, Any]]:
         return 200, {"status": "ok", "routes": self.router.table()}

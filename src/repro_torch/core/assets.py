@@ -67,6 +67,12 @@ class _EngineWrapper(MAXModelWrapper):
         return GenerationResult(tokens=list(tokens), prompt_len=prompt_len,
                                 steps=len(tokens), finished=True)
 
+    def format_stream_delta(self, token_ids: List[int]):
+        # byte-level tokenizer: chunk decodes concatenate to the full text
+        # (a multi-byte codepoint split across chunks renders as
+        # replacement chars in the delta only; clients always get the ids)
+        return TOKENIZER.decode(token_ids)
+
 
 class TextGenerationWrapper(_EngineWrapper):
     def _pre_process(self, inp: Any) -> Dict[str, Any]:

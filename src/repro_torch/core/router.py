@@ -1,6 +1,5 @@
 """Declarative, versioned HTTP routing for the MAX REST surface (the
-port's copy of ``repro/core/router.py``, without the event-stream parts,
-which come with the SSE endpoints).
+port's copy of ``repro/core/router.py``).
 
 A single *route table*: each :class:`Route` binds
 
@@ -18,7 +17,9 @@ from __future__ import annotations
 
 import re
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional, Tuple, Union
+from typing import (
+    Any, Callable, Dict, Iterable, Iterator, List, Optional, Tuple, Union,
+)
 
 _PARAM_RE = re.compile(r"\{(\w+)\}")
 
@@ -36,13 +37,31 @@ class RequestCtx:
 
 
 @dataclass
+class StreamEvent:
+    """One server-sent event: ``event:`` name, JSON ``data:`` payload, and
+    a per-stream monotonically increasing ``id:`` sequence number (the
+    resume cursor for ``Last-Event-ID``)."""
+    event: str                      # token | done | error
+    data: Dict[str, Any]
+    seq: int = 0
+
+
+@dataclass
 class Response:
-    """What a handler returns: a status, a JSON body and extra headers.
-    Handlers may also return a bare ``(status, dict)`` tuple, which the
-    dispatcher normalizes through :meth:`adapt`."""
+    """What a handler returns: a JSON body OR an event iterator the HTTP
+    layer renders as ``text/event-stream``.
+
+    Handlers may return a bare ``(status, dict)`` tuple, which the
+    dispatcher normalizes through :meth:`adapt`; the dict
+    ``_raw``/``_content_type`` escape hatch carries a pre-rendered body
+    (the Prometheus exposition). Streaming handlers return :meth:`sse`;
+    the HTTP layer closes the event iterator when the client disconnects
+    or the stream ends, which is how a disconnect reaches the service
+    layer (a generator sees ``GeneratorExit``)."""
     status: int = 200
     body: Optional[Dict[str, Any]] = None
     headers: Dict[str, str] = field(default_factory=dict)
+    events: Optional[Iterator[StreamEvent]] = None
 
     @classmethod
     def adapt(cls, result: Union["Response", Tuple[int, Dict[str, Any]]]
@@ -51,6 +70,15 @@ class Response:
             return result
         status, body = result
         return cls(status=status, body=body)
+
+    @classmethod
+    def sse(cls, events: Iterable[StreamEvent], *,
+            status: int = 200) -> "Response":
+        return cls(status=status, events=iter(events))
+
+    @property
+    def streaming(self) -> bool:
+        return self.events is not None
 
 
 HandlerResult = Union[Tuple[int, Dict[str, Any]], Response]

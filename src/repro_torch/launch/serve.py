@@ -9,8 +9,10 @@ The flags are the JAX launcher's (``repro/launch/serve.py``), plus
 ``--device`` (default ``cuda``; the server raises at the first deploy
 without a GPU unless ``--device cpu`` is given) and ``--full-width``
 (build the published configuration instead of the reduced one).
-``--service`` takes ``batched`` or ``auto`` (batched for every asset the
-port serves); the sync service is not ported yet.
+``--service`` picks the execution strategy behind each deployment:
+``sync`` (per request on the request thread), ``batched`` (continuous
+batching) or ``auto`` (batched for every asset the port serves). QoS is
+set per deploy, in the v2 deploy body's ``qos`` object.
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ def main():
                     help="asset id to deploy at startup (repeatable)")
     ap.add_argument("--max-seq", type=int, default=128)
     ap.add_argument("--max-batch", type=int, default=4)
-    ap.add_argument("--service", default="auto", choices=["batched", "auto"],
+    ap.add_argument("--service", default="auto",
+                    choices=["sync", "batched", "auto"],
                     help="inference service mode for deployments")
     ap.add_argument("--batch-window-ms", type=float, default=10.0,
                     help="coalescing window for the batched service")

@@ -106,6 +106,11 @@ class GenerationEngine:
         # kernel-launch audit compares against
         self.steps_dispatched = 0
         self.prefills_dispatched = 0
+        # host-side summary of the most recent admission (prompt tokens,
+        # prefix-cache hit tokens, pages allocated, COW): read by the
+        # scheduler's tracer right after insert_request, never a device
+        # value
+        self.last_admission: Optional[Dict[str, Any]] = None
         # Ring families (the hybrid's local attention, the SSM's state, a
         # sliding window shorter than max_seq) keep their cache layout and
         # left-pad prompts (pads count as context, and run through the
@@ -584,6 +589,9 @@ class GenerationEngine:
         except Exception:
             self.release_slot(slot)     # no orphaned slot or leaked pages
             raise
+        self.last_admission = {
+            "prompt_tokens": len(prompt), "cached_hit_tokens": 0,
+            "pages_allocated": need if self.paged else 0, "cow": False}
         return first
 
     def _insert_cached(self, prompt: List[int], slot: int) -> torch.Tensor:
@@ -649,6 +657,11 @@ class GenerationEngine:
         except Exception:
             self.release_slot(slot)     # no orphaned slot or leaked pages
             raise
+        # warm vs cold: hit tokens were installed by reference, only the
+        # remainder paid pages and compute
+        self.last_admission = {
+            "prompt_tokens": n, "cached_hit_tokens": min(hit_len, n),
+            "pages_allocated": total - len(hits), "cow": hit_len >= n}
         return first
 
     def _fill(self, tail: List[int], start: int, slot: int) -> torch.Tensor:
@@ -660,7 +673,9 @@ class GenerationEngine:
         length, as in a chunk. The JAX package pads the count to a power
         of two for its compiled scan; here exactly ``len(tail)`` steps
         run."""
-        self._cache["lengths"][slot] = start
+        # fill_ passes the value to a kernel; an item assignment from a
+        # Python int would copy it from pageable memory, a host sync
+        self._cache["lengths"][slot].fill_(start)
         tokens = np.zeros((len(tail), self.max_batch), np.int32)
         tokens[:, slot] = tail
         mine = np.zeros((self.max_batch,), bool)
@@ -738,6 +753,7 @@ class GenerationEngine:
         self._prefill_lens = np.zeros((max_batch,), np.int32)
         self._next_tok = torch.zeros((max_batch,), dtype=torch.int32,
                                      device=self.device)
+        self.last_admission = None
 
     def step(self, tokens, generator: Optional[torch.Generator],
              temperature=0.0) -> np.ndarray:

@@ -5,9 +5,11 @@ Both ``MAXServer``s listen on ``127.0.0.1:0`` with reduced ``qwen3-4b``
 get the same v1 and v2 requests: the same statuses and the same envelopes,
 apart from timing fields (``latency_ms``, ``uptime_s``,
 ``mean_latency_ms``), the server's name and ``framework``. The port's route
-table is exactly the named subset of the JAX table, ``swagger.json``
-covers every route it serves, and a field of an unported feature answers
-501 ``NOT_IMPLEMENTED`` without touching the deployment.
+table is the JAX table without ``GET /v2/health``, ``swagger.json`` covers
+every route it serves, the QoS, sync and trace fields are served, and a
+field of a still unported feature (replicas, mesh slices, faults,
+brownout) answers 501 ``NOT_IMPLEMENTED`` without touching the
+deployment.
 """
 
 import json
@@ -31,19 +33,28 @@ from repro.core.api import build_router as jax_build_router  # noqa: E402
 from repro.core.registry import ModelRegistry  # noqa: E402
 from repro.models import build_model as jax_build_model  # noqa: E402
 from repro_torch.configs import CONFIGS as PORT_CONFIGS  # noqa: E402
-from repro_torch.core.api import MAXServer, build_router  # noqa: E402
+from repro_torch.core.api import (  # noqa: E402
+    UNPORTED_DEPLOY_FIELDS, UNPORTED_PREDICT_FIELDS, MAXServer, build_router)
 
 BUILD_KW = {"max_seq": 64, "max_batch": 4}
 SERVICE_KW = {"batch_window_s": 0.15}
 TIMING = ("latency_ms", "uptime_s", "mean_latency_ms")
-# the JAX routes the port serves; streams, jobs, traces, metrics and
-# /v2/health come with a later slice
+# the JAX routes the port serves: all but /v2/health, which comes with
+# the robustness half of the REST stack
 PORTED_V2 = {("GET", "/v2/models"),
              ("POST", "/v2/model/{model_id}/predict"),
              ("POST", "/v2/model/{model_id}/predict_batch"),
+             ("POST", "/v2/model/{model_id}/stream"),
+             ("POST", "/v2/model/{model_id}/jobs"),
+             ("GET", "/v2/jobs/{job_id}"),
+             ("GET", "/v2/jobs/{job_id}/events"),
+             ("DELETE", "/v2/jobs/{job_id}"),
+             ("GET", "/v2/jobs/{job_id}/trace"),
+             ("GET", "/v2/trace/export"),
              ("POST", "/v2/model/{model_id}/deploy"),
              ("DELETE", "/v2/model/{model_id}"),
              ("GET", "/v2/model/{model_id}/stats"),
+             ("GET", "/v2/metrics"),
              ("GET", "/v2/routes")}
 
 
@@ -141,8 +152,6 @@ CASES = [
 def test_same_requests_same_envelopes(servers):
     for method, path, body in CASES:
         jb, tb = _both(servers, method, path, body)
-        if path.endswith("/deploy") and jb.get("status") == "ok":
-            jb.pop("qos")           # QoS is not ported: no qos block
         assert tb == jb, (method, path)
 
 
@@ -194,6 +203,11 @@ def test_route_table_is_the_ported_subset_of_jax():
             if r[2] == "v1" or (r[0], r[1]) in PORTED_V2]
     assert rows(build_router()) == want
     assert {(m, p) for m, p, v, _ in want if v == "v2"} == PORTED_V2
+    assert [r for r in rows(jax_build_router()) if r not in want] == \
+        [("GET", "/v2/health", "v2", "application/json")]
+    assert UNPORTED_PREDICT_FIELDS == ()
+    assert set(UNPORTED_DEPLOY_FIELDS) == {"replicas", "mesh_slice",
+                                           "faults", "brownout"}
 
 
 def test_routes_endpoint_and_swagger_cover_exactly_what_is_served(servers):
@@ -215,24 +229,10 @@ def test_routes_endpoint_and_swagger_cover_exactly_what_is_served(servers):
 
 
 @pytest.mark.parametrize("path,body,field", [
-    ("/v2/model/qwen3-4b/predict", {"input": "x", "priority": "batch"},
-     "priority"),
-    ("/v2/model/qwen3-4b/predict", {"input": "x", "client": "c"}, "client"),
-    ("/v2/model/qwen3-4b/predict", {"input": "x", "deadline_ms": 50},
-     "deadline_ms"),
-    ("/v2/model/qwen3-4b/predict_batch", {"inputs": ["x"],
-                                          "priority": "interactive"},
-     "priority"),
-    ("/v2/model/qwen3-4b/deploy", {"qos": {"policy": "fifo"}}, "qos"),
     ("/v2/model/qwen3-4b/deploy", {"replicas": 2}, "replicas"),
     ("/v2/model/qwen3-4b/deploy", {"mesh_slice": "auto"}, "mesh_slice"),
-    ("/v2/model/qwen3-4b/deploy", {"trace": True}, "trace"),
-    ("/v2/model/qwen3-4b/deploy", {"trace_buffer": 8}, "trace_buffer"),
-    ("/v2/model/qwen3-4b/deploy", {"slow_trace_ms": 5}, "slow_trace_ms"),
     ("/v2/model/qwen3-4b/deploy", {"faults": {}}, "faults"),
     ("/v2/model/qwen3-4b/deploy", {"brownout": {}}, "brownout"),
-    ("/v2/model/qwen3-4b/deploy", {"service": "sync", "paged": True},
-     "sync"),
 ])
 def test_unported_fields_answer_501_and_change_nothing(servers, path, body,
                                                        field):
@@ -250,6 +250,37 @@ def test_unported_fields_answer_501_and_change_nothing(servers, path, body,
     assert stats1["submitted"] == stats0["submitted"]
 
 
+@pytest.mark.parametrize("path,body,field", [
+    ("/v2/model/qwen3-4b/predict", {"input": "x", "priority": "batch"},
+     "priority"),
+    ("/v2/model/qwen3-4b/predict", {"input": "x", "client": "c"}, "client"),
+    ("/v2/model/qwen3-4b/predict", {"input": "x", "deadline_ms": 50000},
+     "deadline_ms"),
+    ("/v2/model/qwen3-4b/predict_batch", {"inputs": ["x"],
+                                          "priority": "interactive"},
+     "priority"),
+    ("/v2/model/qwen3-4b/deploy", {"qos": {"policy": "fifo"}}, "qos"),
+    ("/v2/model/qwen3-4b/deploy", {"trace": True}, "trace"),
+    ("/v2/model/qwen3-4b/deploy", {"trace_buffer": 8}, "trace_buffer"),
+    ("/v2/model/qwen3-4b/deploy", {"slow_trace_ms": 5}, "slow_trace_ms"),
+    ("/v2/model/qwen3-4b/deploy", {"service": "sync", "paged": True},
+     "sync"),
+])
+def test_formerly_unported_fields_are_served_as_jax(servers, path, body,
+                                                    field):
+    """The QoS, trace and sync fields that answered 501 before now answer
+    as the JAX server does."""
+    _both(servers, "POST", "/v2/model/qwen3-4b/deploy", {})
+    jb, tb = _both(servers, "POST", path, body)
+    assert tb.get("status") in ("ok", "partial"), (field, tb)
+    if path.endswith("/deploy"):
+        assert tb == jb
+        if field == "sync":
+            assert tb["service"] == "sync" and tb["kv_cache"]["paged"]
+    else:
+        assert _norm(tb) == _norm(jb)
+
+
 def test_deploy_undeploy_lifecycle_matches_jax(servers):
     for method, path, body in [
             ("POST", "/v2/model/qwen3-4b/deploy", {"paged": True,
@@ -261,7 +292,6 @@ def test_deploy_undeploy_lifecycle_matches_jax(servers):
             ("POST", "/model/qwen3-4b/deploy", {}),
             ("GET", "/", None)]:
         jb, tb = _both(servers, method, path, body)
-        jb.pop("qos", None)
         assert tb == jb, (method, path)
 
 

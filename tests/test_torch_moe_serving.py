@@ -270,7 +270,6 @@ def test_http_servers_give_the_same_predictions_and_stats():
                                        f"/v2/model/{model}/deploy", body)
                                   for s in (js, ts))
             assert tc == jc == 200, (jb, tb)
-            jb.pop("qos")               # QoS is not ported
             assert tb == jb and tb["kv_cache"]["paged"] is True
             preds = {}
             for s in (js, ts):
