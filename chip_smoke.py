@@ -46,6 +46,20 @@ Phases, in order; any failure exits non-zero:
    host reads to one for each tick that ran a chunk (the ticks from the
    trace's tick lane; the worker's reads and synchronizing operations
    counted on the card, none on any other thread);
+4d. the robustness half on the same server, after the JAX chaos scenario
+   (``benchmarks/run.py::bench_robustness``): 16 greedy requests of 8
+   tokens to a fault-free deployment, then to one with ~5% seeded
+   per-chunk faults (every one completes with its twin's tokens);
+   scripted admission and slot-2 chunk faults retire only their victims;
+   a stream faulted after its first token ends in an ``error`` event; a
+   kill at tick 0 is respawned by the watchdog, the new worker recovers
+   (quarantine, reset) and the jobs finish with phase 3's tokens, with
+   4c.h's count of reads and synchronizing operations (none off the
+   worker); three faults in a row rebuild the engine and
+   ``memory_allocated`` returns to its level within one page; HARD
+   brownout turns ``/v2/health`` 503 with ``Retry-After`` and predicts
+   ``CIRCUIT_OPEN``, SOFT sheds best_effort and clamps, released it reads
+   200;
 5. and 6. the recurrent families, one on the card at a time: deploy
    full-width ``recurrentgemma-9b`` (hybrid), then ``rwkv6-7b`` (SSM), over
    HTTP at ``max_batch`` 4 and ``max_seq`` 4096; serve four greedy v2
@@ -2128,7 +2142,9 @@ def phase_lifecycle(cfg, server, card, greedy_inputs, contiguous_outs,
     log(f"  h. batched: {ticks} ticks ({chunk_ticks} with a chunk, by the "
         f"trace's tick lane), {chunks} chunks, {reads} host reads; on the "
         f"worker {counter.reads[worker]} explicit reads and "
-        f"{counter.syncs[worker]} synchronizing operations")
+        f"{counter.syncs[worker]} synchronizing operations; longest tick "
+        f"{max(e['dur'] for e in tick_lane) / 1e3:.1f} ms, "
+        f"{svc.tick_stalls} over the {svc.stall_budget_s} s stall budget")
     if len(tick_lane) != ticks:
         fail(f"the trace holds {len(tick_lane)} ticks, the scheduler {ticks}")
     if not (reads == chunk_ticks == chunks and counter.reads[worker] == reads
@@ -2196,6 +2212,389 @@ def phase_lifecycle(cfg, server, card, greedy_inputs, contiguous_outs,
 def http_text(url, path):
     with urllib.request.urlopen(url + path, timeout=600) as r:
         return r.status, r.read().decode(), dict(r.headers)
+
+
+# ---------------------------------------------------------------------------
+# phase 4d: the robustness half over HTTP
+# ---------------------------------------------------------------------------
+
+# the JAX package's chaos scenario (benchmarks/run.py::bench_robustness):
+# greedy requests against a fault-free twin under seeded per-chunk faults,
+# retried with these knobs (the service's, not deploy fields, in both
+# packages)
+CHAOS_SPEC = {"chunk_rate": 0.05, "seed": 7}
+CHAOS_RETRIES, CHAOS_BACKOFF_S = 5, 0.01
+# one page of full-width qwen3-4b's pool: 16 tokens x 36 layers x K and V
+# x 8 KV heads x 128 x 2 bytes (bf16)
+PAGE_BYTES = 16 * 36 * 2 * 8 * 128 * 2
+
+
+def scheduler_ticks(url):
+    """The scheduler's tick lane of the deployed service's trace."""
+    code, export = http(url, "GET", "/v2/trace/export")
+    if code != 200:
+        fail(f"/v2/trace/export answered {code}")
+    return [e for e in export["traceEvents"]
+            if e["ph"] == "X" and e.get("cat") == "scheduler"]
+
+
+def phase_robustness(cfg, server, card, greedy_inputs, contiguous_outs,
+                     contiguous_ids):
+    """Phase 4d: fault injection, safe retry, the watchdog, engine rebuild,
+    brownout and ``/v2/health`` over phase 4's server at full width, after
+    the JAX chaos scenario. Returns the three dense kernels' launches in
+    this phase. Each step is a function of its own, so that no reference
+    to a deployment outlives the redeploy that replaces it."""
+    import torch
+    from repro_torch.data.tokenizer import TOKENIZER
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, paged_decode_attention)
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.serving.engine import GenerationEngine
+
+    log("== phase 4d: the robustness half over HTTP")
+    L, url = cfg.num_layers, server.url
+    paged_decode_attention.launches = 0
+    decode_attention.launches = 0
+    flash_attention.launches = 0
+    t_phase = time.perf_counter()
+    totals = {"steps": 0, "prefills": 0}
+    live, levels = {}, []
+
+    def at():
+        return f" [{time.perf_counter() - t_phase:.1f} s into 4d]"
+
+    def tally():
+        """The live engine's steps and prefills join the phase's totals."""
+        eng = live.pop("eng", None)
+        if eng is not None:
+            totals["steps"] += eng.steps_dispatched - live["s0"]
+            totals["prefills"] += eng.prefills_dispatched - live["p0"]
+
+    def redeploy(body, **knobs):
+        """Deploy over HTTP (paged, prefix cache, ``body``) and set the
+        service's retry knobs; the old engine is tallied first. Returns
+        (deployment, service, engine)."""
+        tally()
+        deploy(url, {"paged": True, "prefix_cache": True, **body})
+        # one deployment on the card at a time: the old one's 17 GB are
+        # gone before the new one is built
+        levels.append(torch.cuda.memory_allocated())
+        if levels[-1] > levels[0] + 1e9:
+            fail(f"device memory grew over the redeploys: "
+                 f"{[f'{m / 1e9:.2f}' for m in levels]} GB")
+        dep = server.manager.get("qwen3-4b")
+        for key, value in knobs.items():
+            setattr(dep.service, key, value)
+        eng = dep.wrapper.engine
+        live.update(eng=eng, s0=eng.steps_dispatched,
+                    p0=eng.prefills_dispatched)
+        return dep, dep.service, eng
+
+    def predict_batch(inputs):
+        t0 = time.perf_counter()
+        code, body = http(url, "POST", "/v2/model/qwen3-4b/predict_batch",
+                          {"inputs": inputs})
+        if code != 200:
+            fail(f"predict_batch answered {code} {body}")
+        return body["results"], time.perf_counter() - t0
+
+    def longest_tick_ms():
+        return max(e["dur"] for e in scheduler_ticks(url)) / 1e3
+
+    # a. chaos against a fault-free twin: 16 greedy requests of 8 new
+    #    tokens (prompts of 40 characters, two full pages each, so a
+    #    retry meets the pages its faulted attempt registered)
+    chaos_inputs = [{"text": _text(40, 700 + i), "max_new_tokens": 8}
+                    for i in range(16)]
+
+    def twin_run():
+        redeploy({})
+        twin, wall = predict_batch(chaos_inputs)
+        if any(r["status"] != "ok" for r in twin):
+            fail(f"the fault-free twin failed: {twin}")
+        return twin, wall, longest_tick_ms()
+
+    def chaos_run(twin, wall_twin, tick_twin):
+        dep, svc, _ = redeploy({"faults": CHAOS_SPEC},
+                               max_retries=CHAOS_RETRIES,
+                               retry_backoff_s=CHAOS_BACKOFF_S)
+        chaos, wall = predict_batch(chaos_inputs)
+        rob = svc.stats()["robustness"]
+        fired = rob["fault_injection"]["fired"]
+        done = sum(r["status"] == "ok" for r in chaos)
+        if done != len(chaos_inputs):
+            fail(f"chaos: {done} of {len(chaos_inputs)} requests completed: "
+                 f"{[r for r in chaos if r['status'] != 'ok']}")
+        if [r["predictions"] for r in chaos] \
+                != [r["predictions"] for r in twin]:
+            fail("chaos: a retried request's tokens differ from its twin's")
+        if fired["chunk"] == 0 or rob["engine_faults"] != fired["chunk"] \
+                or rob["retries"] != rob["engine_faults"]:
+            fail(f"chaos: faults fired {fired}, robustness {rob}")
+        check_pool(dep, "a. after the chaos run")
+        log(f"  a. chaos {CHAOS_SPEC}, max_retries {CHAOS_RETRIES}, backoff "
+            f"{CHAOS_BACKOFF_S} s: {done} of {len(chaos_inputs)} complete "
+            f"with their twin's tokens; fired {fired}, "
+            f"{rob['engine_faults']} engine faults, {rob['retries']} "
+            f"retries, {rob['engine_rebuilds']} rebuilds; wall twin "
+            f"{wall_twin:.2f} s, chaos {wall:.2f} s; longest tick twin "
+            f"{tick_twin:.1f} ms, chaos {longest_tick_ms():.1f} ms (stall "
+            f"budget {svc.stall_budget_s} s, {rob['tick_stalls']} stalls) "
+            f"[{card}]{at()}")
+
+    def scripted(twin):
+        """An admission fault at tick 0 and a scoped chunk fault on slot 2
+        at tick 1, no retries: only the two victims retire."""
+        dep, svc, _ = redeploy(
+            {"faults": {"script": [{"tick": 0, "site": "admission"},
+                                   {"tick": 1, "site": "chunk",
+                                    "slot": 2}]}},
+            max_retries=0)
+        results, _ = predict_batch(chaos_inputs[:4])
+        faulted = [i for i, r in enumerate(results) if r["status"] != "ok"]
+        msgs = sorted(results[i]["error"]["message"] for i in faulted)
+        want = ["engine fault during admission: injected admission fault "
+                "at tick 0",
+                "engine fault during chunk: injected chunk fault at tick 1 "
+                "(slot 2)"]
+        if msgs != want or any(results[i]["error"]["code"] != "ENGINE_FAULT"
+                               for i in faulted):
+            fail(f"scripted faults retired {[results[i] for i in faulted]}")
+        for i, r in enumerate(results):
+            if i not in faulted \
+                    and r["predictions"] != twin[i]["predictions"]:
+                fail(f"scripted faults: request {i}, not a victim, differs "
+                     "from its twin")
+        if svc.stats()["robustness"]["engine_faults"] != 2:
+            fail(f"scripted faults: {svc.stats()['robustness']}")
+        check_pool(dep, "a. after the scripted faults")
+        log(f"  a. scripted admission (tick 0) and slot-2 chunk (tick 1) "
+            f"faults retired only their victims (requests {faulted}); the "
+            f"other two equal their twins{at()}")
+
+    def stream_fault():
+        """A stream that faults after its first token: a terminal error,
+        no retry."""
+        _, svc, _ = redeploy(
+            {"faults": {"script": [{"tick": 1, "site": "chunk"}]}})
+        with sse_open(url, "/v2/model/qwen3-4b/stream",
+                      {"input": greedy_inputs[0]}) as r:
+            events = [e for _, e in sse_read(r, time.perf_counter())]
+        kinds = [e["event"] for e in events]
+        ids = [t for e in events if e["event"] == "token"
+               for t in e["data"]["token_ids"]]
+        want_ids = contiguous_ids[0]
+        if not 0 < len(ids) < len(want_ids) or ids != want_ids[:len(ids)] \
+                or kinds[-1] != "error" or "done" in kinds \
+                or events[-1]["data"]["code"] != "ENGINE_FAULT" \
+                or svc.stats()["robustness"]["retries"] != 0:
+            fail(f"stream fault: events {kinds}, {len(ids)} ids, "
+                 f"{svc.stats()['robustness']}")
+        log(f"  b. a stream faulted after {len(ids)} tokens (equal to the "
+            f"contiguous engine's): terminal ENGINE_FAULT event, no done, "
+            f"no retry{at()}")
+
+    def kill():
+        """A kill at tick 0, after that tick's prefills launched: the
+        watchdog starts a new worker, which drops the unread first tokens,
+        quarantines, resets the engine and retries; two more jobs queue
+        behind the batch. 4c.h's count runs throughout."""
+        binds, resets = [], []
+        bind = GenerationEngine.bind_thread
+
+        def traced_bind(self):
+            bind(self)
+            binds.append((threading.current_thread().name,
+                          torch.cuda.current_device(),
+                          torch.cuda.current_stream().cuda_stream))
+        GenerationEngine.bind_thread = traced_bind
+        try:
+            dep, svc, eng = redeploy(
+                {"faults": {"script": [{"tick": 0, "site": "kill"}]}})
+            reset = eng.reset
+
+            def traced_reset():
+                resets.append(threading.current_thread().name)
+                reset()
+            eng.reset = traced_reset
+            counter = SyncCounter()
+            with counter:
+                jobs = [(submit_job(url, inp, f"k{i}"), i)
+                        for i, inp in enumerate(greedy_inputs)]
+                jobs += [(submit_job(url, greedy_inputs[i], f"q{i}"), i)
+                         for i in (0, 1)]
+                wait_until(lambda: all(
+                    job_state(url, j)["state"] not in ("queued", "running")
+                    for j, _ in jobs), "the jobs after the kill")
+                for j, i in jobs:
+                    job = job_state(url, j)
+                    if job["state"] != "done" or job["result"][
+                            "predictions"] != contiguous_outs[i]["predictions"]:
+                        fail(f"kill: job {j} ({job['state']}) differs from "
+                             f"phase 3's tokens: {job}")
+                code, health = http(url, "GET", "/v2/health")
+                h = health["deployments"]["qwen3-4b"]
+                if code != 200 or h["worker_restarts"] != 1 \
+                        or not h["worker_alive"]:
+                    fail(f"kill: /v2/health answered {code} {health}")
+                tick_lane = scheduler_ticks(url)
+            del eng.reset
+        finally:
+            GenerationEngine.bind_thread = bind
+        ss = svc.scheduler.stats
+        worker = f"batched-{svc.model_id}"
+        chunk_ticks = sum(e["args"]["chunk_k"] > 0 for e in tick_lane)
+        others = {k: v for k, v in (counter.reads + counter.syncs).items()
+                  if k not in (worker, "MainThread")}
+        rob = svc.stats()["robustness"]
+        log(f"  c. kill at tick 0: worker respawned "
+            f"({rob['worker_restarts']}), {rob['engine_faults']} quarantined "
+            f"and {rob['retries']} retried; {len(jobs)} jobs done with phase "
+            f"3's tokens; after it {ss.ticks} ticks ({chunk_ticks} with a "
+            f"chunk), {ss.chunks} chunks, {ss.host_reads} host reads; on the "
+            f"worker {counter.reads[worker]} explicit reads and "
+            f"{counter.syncs[worker]} synchronizing operations; reset on "
+            f"{resets}; worker device and stream {binds}")
+        if not (ss.host_reads == chunk_ticks == ss.chunks
+                and counter.reads[worker] == ss.host_reads
+                and counter.syncs[worker] == ss.host_reads):
+            for (name, where), n in counter.where.most_common():
+                log(f"    {n} synchronizing operations on {name} at {where}")
+            fail("kill: the scheduler read the device more than once a tick")
+        if others:
+            fail(f"kill: threads other than the worker touched the device: "
+                 f"{others}")
+        if resets != [worker] or len(binds) != 2 \
+                or {b[0] for b in binds} != {worker} \
+                or binds[0][1:] != binds[1][1:]:
+            fail(f"kill: recovery off the worker or on another device or "
+                 f"stream: resets {resets}, binds {binds}")
+        if rob["engine_faults"] == 0 \
+                or rob["retries"] != rob["engine_faults"]:
+            fail(f"kill: {rob}")
+        check_pool(dep, "c. after the kill")
+        log(f"  c. {ss.host_reads} host reads for {chunk_ticks} chunk ticks, "
+            f"none off the worker; the watchdog thread touched no "
+            f"tensor{at()}")
+
+    def rebuild():
+        """Three scripted chunk faults in a row rebuild the engine
+        (rebuild_after_faults 3); its device memory returns to its
+        level."""
+        dep, svc, eng = redeploy(
+            {"faults": {"script": [{"tick": t, "site": "chunk"}
+                                   for t in (1, 2, 3)]}},
+            max_retries=CHAOS_RETRIES, retry_backoff_s=CHAOS_BACKOFF_S)
+        mem = {}
+        reset = eng.reset
+
+        def measured_reset():
+            torch.cuda.reset_peak_memory_stats()
+            mem["before"] = torch.cuda.memory_allocated()
+            reset()
+            mem["after"] = torch.cuda.memory_allocated()
+            mem["peak"] = torch.cuda.max_memory_allocated()
+        eng.reset = measured_reset
+        code, out = http(url, "POST", "/v2/model/qwen3-4b/predict",
+                         {"input": greedy_inputs[0]})
+        del eng.reset
+        rob = svc.stats()["robustness"]
+        if code != 200 \
+                or out["predictions"] != contiguous_outs[0]["predictions"]:
+            fail(f"rebuild: the retried request differs from phase 3's: "
+                 f"{out}")
+        if rob["engine_rebuilds"] != 1 or rob["engine_faults"] != 3 \
+                or rob["retries"] != 3 or not mem:
+            fail(f"rebuild: {rob}, memory {mem}")
+        grew = mem["after"] - mem["before"]
+        if abs(grew) > PAGE_BYTES:
+            fail(f"rebuild: memory_allocated moved {grew} B, over one page "
+                 f"({PAGE_BYTES} B)")
+        code, out = http(url, "POST", "/v2/model/qwen3-4b/predict",
+                         {"input": greedy_inputs[1]})
+        if code != 200 \
+                or out["predictions"] != contiguous_outs[1]["predictions"]:
+            fail(f"rebuild: the next request differs from phase 3's: {out}")
+        check_pool(dep, "d. after the rebuild")
+        log(f"  d. 3 faults in a row: 1 rebuild, 3 retries, tokens equal "
+            f"phase 3's before and after; memory_allocated "
+            f"{mem['before'] / 1e9:.3f} GB before the reset, "
+            f"{mem['after'] / 1e9:.3f} GB after ({grew:+d} B; a page is "
+            f"{PAGE_BYTES} B), peak during it {mem['peak'] / 1e9:.3f} GB "
+            f"({mem['peak'] - mem['before']:+d} B) [{card}]{at()}")
+
+    def brownout():
+        """HARD closes the circuit and /v2/health answers 503, SOFT sheds
+        best_effort and clamps, and the released force reads 200 again."""
+        dep, svc, _ = redeploy({"brownout": {"retry_after_s": 2.0,
+                                             "clamp_tokens": 4}})
+        ctl = svc._brownout
+        code, health = http(url, "GET", "/v2/health")
+        if code != 200 or not health["ready"]:
+            fail(f"brownout: /v2/health before the force: {code} {health}")
+        ctl.force("hard")
+        code, health, hdrs = http(url, "GET", "/v2/health",
+                                  with_headers=True)
+        if code != 503 or health["ready"] or not hdrs.get("Retry-After") \
+                or health["deployments"]["qwen3-4b"]["degradation"] \
+                != "hard":
+            fail(f"brownout HARD: /v2/health answered {code} {health} "
+                 f"{hdrs}")
+        code, out, hdrs = http(url, "POST", "/v2/model/qwen3-4b/predict",
+                               {"input": greedy_inputs[0]},
+                               with_headers=True)
+        if code != 503 or out["error"]["code"] != "CIRCUIT_OPEN" \
+                or hdrs.get("Retry-After") != "2":
+            fail(f"brownout HARD: predict answered {code} {out} {hdrs}")
+        ctl.force("soft")
+        code, out, hdrs = http(url, "POST", "/v2/model/qwen3-4b/predict",
+                               {"input": greedy_inputs[0],
+                                "priority": "best_effort"},
+                               with_headers=True)
+        if code != 503 or out["error"]["code"] != "DEGRADED" \
+                or hdrs.get("Retry-After") != "2":
+            fail(f"brownout SOFT: best_effort answered {code} {out} {hdrs}")
+        code, out = http(url, "POST", "/v2/model/qwen3-4b/predict",
+                         {"input": greedy_inputs[0]})
+        pred = out["predictions"][0] if code == 200 else {}
+        if pred.get("generated_tokens") != 4 or pred.get("generated_text") \
+                != TOKENIZER.decode(contiguous_ids[0][:4]):
+            fail(f"brownout SOFT: the clamped predict answered {code} {out}")
+        ctl.force("normal")
+        ctl.force(None)
+        code, health = http(url, "GET", "/v2/health")
+        if code != 200 or not health["ready"]:
+            fail(f"brownout released: /v2/health answered {code} {health}")
+        shed = svc.stats()["robustness"]["brownout"]["shed"]
+        check_pool(dep, "e. after brownout")
+        log(f"  e. HARD: /v2/health 503 with Retry-After, predict 503 "
+            f"CIRCUIT_OPEN (Retry-After 2); SOFT: best_effort 503 DEGRADED, "
+            f"{greedy_inputs[0]['max_new_tokens']} tokens asked, 4 given "
+            f"(phase 3's first 4); released: 200; {shed} shed{at()}")
+
+    twin, wall_twin, tick_twin = twin_run()
+    chaos_run(twin, wall_twin, tick_twin)
+    scripted(twin)
+    stream_fault()
+    kill()
+    rebuild()
+    brownout()
+    tally()
+    steps, prefills = totals["steps"], totals["prefills"]
+    paged, flash = paged_decode_attention.launches, flash_attention.launches
+    if decode_attention.launches != 0 or paged != L * steps \
+            or flash != L * prefills or steps == 0:
+        fail(f"4d launches: paged {paged} for {steps} steps, flash {flash} "
+             f"for {prefills} prefills, contiguous "
+             f"{decode_attention.launches}")
+    log(f"  launches: paged {paged} ({steps} decode and fill steps x {L}), "
+        f"flash {flash} ({prefills} prefills x {L}), contiguous 0")
+    log(f"  device memory after each of the {len(levels)} deploys: "
+        f"{', '.join(f'{m / 1e9:.2f}' for m in levels)} GB")
+    log(f"  phase 4d took {time.perf_counter() - t_phase:.1f} s")
+    return {"paged_decode_attention": paged, "decode_attention": 0,
+            "flash_attention": flash}
 
 
 # ---------------------------------------------------------------------------
@@ -2890,15 +3289,17 @@ def main():
         http_launches = phase_http(cfg, server, greedy_inputs, greedy_outs)
         life = phase_lifecycle(cfg, server, card, greedy_inputs, greedy_outs,
                                greedy_ids)
+        robust = phase_robustness(cfg, server, card, greedy_inputs,
+                                  greedy_outs, greedy_ids)
     finally:
         server.stop()
     gc.collect()
     torch.cuda.empty_cache()
     launches["paged_decode_attention"] = \
         http_launches["paged_decode_attention"]
-    # phase 4c's launches join each kernel's total on its path
-    for name, n in life.items():
-        launches[name] += n
+    # phases 4c's and 4d's launches join each kernel's total on its path
+    for name in life:
+        launches[name] += life[name] + robust[name]
     if torch.cuda.memory_allocated() > 1e9:
         fail(f"{torch.cuda.memory_allocated() / 1e9:.1f} GB still allocated "
              "before the recurrent families")

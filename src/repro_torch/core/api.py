@@ -34,12 +34,16 @@ decode batches by the deployment's ``BatchedService``):
     GET    /v2/jobs/{job_id}/trace     -> a job's span timeline
     GET    /v2/trace/export            -> Chrome trace-event JSON
     POST   /v2/model/{id}/deploy       -> deploy (service mode, qos, paged
-                                          KV / prefix cache, trace knobs)
+                                          KV / prefix cache, trace, faults
+                                          and brownout knobs)
     DELETE /v2/model/{id}              -> undeploy
     GET    /v2/model/{id}/stats        -> service-level stats
     GET    /v2/metrics                 -> serving metrics (JSON, or
                                           Prometheus text with
                                           ?format=prometheus)
+    GET    /v2/health                  -> liveness / readiness /
+                                          degradation (503 when any
+                                          deployment is not ready)
     GET    /v2/routes                  -> the route table itself
 
 QoS: v2 predict/predict_batch/stream/jobs bodies accept ``priority``
@@ -47,12 +51,18 @@ QoS: v2 predict/predict_batch/stream/jobs bodies accept ``priority``
 header wins over the body field) and ``deadline_ms`` (shed with
 ``DEADLINE_EXCEEDED`` if the request cannot start in time).
 
-Not ported yet, and absent from the table: ``/v2/health``. A deploy body
-field of an unported feature (``replicas``, ``mesh_slice``, ``faults``,
-``brownout``) answers 501 ``NOT_IMPLEMENTED`` naming the field and does
-nothing else.
+Robustness: engine faults surface as structured ``ENGINE_FAULT`` (500)
+once the service's bounded retry budget is spent; brownout shedding
+surfaces as ``DEGRADED`` / ``CIRCUIT_OPEN`` (503). The ``faults`` and
+``brownout`` deploy knobs are validated before any teardown, as the JAX
+server validates them.
 
-Every 429/503 carries ``Retry-After``. Implemented on the stdlib
+Not ported yet: replica groups. A deploy body field of theirs
+(``replicas``, ``mesh_slice``) answers 501 ``NOT_IMPLEMENTED`` naming the
+field and does nothing else.
+
+Every 429/503 carries ``Retry-After`` (the error's ``retry_after_s`` when
+the brownout controller set one). Implemented on the stdlib
 ``ThreadingHTTPServer``. Deployments build on ``device="cuda"`` unless
 ``build_kw`` names another device (the tests pass ``"cpu"``).
 """
@@ -72,6 +82,7 @@ from repro_torch.core.registry import ModelRegistry
 from repro_torch.core.router import RequestCtx, Response, Router, StreamEvent
 from repro_torch.core.service import ServiceOverloaded
 from repro_torch.core.wrapper import MAXError, PromptTooLong
+from repro_torch.serving.faults import BrownoutConfig, FaultSpec
 from repro_torch.serving.qos import PRIORITIES, AdmissionError
 
 API_VERSION = "v1"          # of the back-compat surface
@@ -98,7 +109,13 @@ ERROR_STATUS = {
     # the shared KV page pool ran dry: a capacity condition of the
     # deployment, not a malformed request
     "KV_POOL_EXHAUSTED": 503,
+    # an engine fault whose retry budget ran out (or whose tokens had
+    # already streamed, which forbids a replay)
     "ENGINE_FAULT": 500,
+    # brownout SOFT shed a best_effort request; retryable after backoff
+    "DEGRADED": 503,
+    # brownout HARD opened the admission circuit for all classes
+    "CIRCUIT_OPEN": 503,
     "CANCELLED": 499,
     "INTERNAL": 500,
     # a field of a feature the port does not serve yet
@@ -109,7 +126,7 @@ ERROR_STATUS = {
 
 # body fields of unported features, by route
 UNPORTED_PREDICT_FIELDS = ()
-UNPORTED_DEPLOY_FIELDS = ("replicas", "mesh_slice", "faults", "brownout")
+UNPORTED_DEPLOY_FIELDS = ("replicas", "mesh_slice")
 
 
 class ApiError(Exception):
@@ -256,7 +273,9 @@ def build_router(server: Optional["MAXServer"] = None) -> Router:
                   " knobs select the paged KV cache layout, the prefix knobs"
                   " enable content-addressed KV page sharing on top of it,"
                   " and the trace knobs size request-lifecycle tracing /"
-                  " slow-request capture)")
+                  " slow-request capture; 'faults': {...} arms deterministic"
+                  " fault injection and 'brownout': {...} tunes the"
+                  " NORMAL/SOFT/HARD degradation controller)")
     r.add("DELETE", "/v2/model/{model_id}", h("_h_undeploy"),
           summary="Undeploy an asset")
     r.add("GET", "/v2/model/{model_id}/stats", h("_h_stats_v2"),
@@ -265,6 +284,11 @@ def build_router(server: Optional["MAXServer"] = None) -> Router:
           summary="Serving metrics: requests by class/outcome, queue-wait "
                   "percentiles, shed counts (?format=prometheus for text "
                   "exposition)")
+    r.add("GET", "/v2/health", h("_h_health_v2"),
+          summary="Liveness / readiness / degradation across deployments: "
+                  "200 when every deployed service is ready, 503 (with "
+                  "Retry-After) when any worker is dead or a brownout "
+                  "circuit is open")
     r.add("GET", "/v2/routes", h("_h_routes"),
           summary="The route table (source of truth for this spec)")
     return r
@@ -852,6 +876,41 @@ class MAXServer:
             out.setdefault("trace", True)
         return out
 
+    @staticmethod
+    def _robustness_knobs(body: Dict[str, Any]) -> Dict[str, Any]:
+        """The ``faults`` and ``brownout`` knobs of a v2 deploy body:
+        service-level overrides, validated as the JAX server validates
+        them (a list of fault specs is per replica, and this server has no
+        replica groups)."""
+        out: Dict[str, Any] = {}
+        if body.get("faults") is not None:
+            faults = body["faults"]
+            if isinstance(faults, list):
+                raise ApiError("INVALID_INPUT",
+                               "a 'faults' list requires 'replicas' > 1 "
+                               "(one spec per replica)")
+            if not isinstance(faults, dict):
+                raise ApiError("INVALID_INPUT",
+                               "'faults' must be an object (all replicas) "
+                               "or a list of objects (per replica)")
+            try:
+                FaultSpec.from_json(faults)
+            except (TypeError, ValueError) as e:
+                raise ApiError("INVALID_INPUT",
+                               f"bad 'faults' spec: {e}") from None
+            out["faults"] = faults
+        if body.get("brownout") is not None:
+            if not isinstance(body["brownout"], dict):
+                raise ApiError("INVALID_INPUT",
+                               "'brownout' must be an object")
+            try:
+                BrownoutConfig.from_json(body["brownout"])
+            except (TypeError, ValueError) as e:
+                raise ApiError("INVALID_INPUT",
+                               f"bad 'brownout' config: {e}") from None
+            out["brownout"] = body["brownout"]
+        return out
+
     def _h_deploy_v2(self, ctx) -> Tuple[int, Dict[str, Any]]:
         body = ctx.body if isinstance(ctx.body, dict) else {}
         self._reject_unported(body, UNPORTED_DEPLOY_FIELDS)
@@ -873,7 +932,8 @@ class MAXServer:
                     "INVALID_INPUT",
                     f"page_size {page} must divide the deployment's "
                     f"max_seq {max_seq}")
-        service_overrides = self._trace_knobs(body)
+        service_overrides = {**self._trace_knobs(body),
+                             **self._robustness_knobs(body)}
         try:
             dep = self.manager.deploy(ctx.params["model_id"],
                                       service_mode=mode, qos=qos,
@@ -918,6 +978,29 @@ class MAXServer:
                      "requests": dep.stats.requests,
                      "errors": dep.stats.errors,
                      "mean_latency_ms": round(dep.stats.mean_latency_ms, 2)}
+
+    def _h_health_v2(self, ctx) -> Tuple[int, Dict[str, Any]]:
+        """Aggregate liveness/readiness: the process answering is
+        liveness; readiness needs every deployed service ready (a live
+        worker, the brownout circuit closed). The 503 carries Retry-After,
+        so a load balancer stops routing here until it clears."""
+        deployments: Dict[str, Any] = {}
+        ready = True
+        degraded = False
+        for asset_id in self.manager.deployed():
+            try:
+                service = self.manager.get(asset_id).service
+            except KeyError:
+                continue            # undeployed between list and get
+            h = service.health()
+            deployments[asset_id] = h
+            ready = ready and bool(h.get("ready"))
+            degraded = degraded or h.get("degradation", "normal") != "normal"
+        status = 200 if ready else 503
+        return status, {"status": "ok" if ready else "error",
+                        "live": True, "ready": ready,
+                        "degraded": degraded,
+                        "deployments": deployments}
 
     def _h_metrics(self, ctx) -> Tuple[int, Dict[str, Any]]:
         reg = self.manager.metrics

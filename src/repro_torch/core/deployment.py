@@ -20,6 +20,7 @@ Not ported yet: replica groups (``replicas``, ``mesh_slice``).
 
 from __future__ import annotations
 
+import gc
 import threading
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
@@ -128,8 +129,9 @@ class DeploymentManager:
         live deployment is returned as it is unless ``force`` (explicit
         engine or service knobs), an explicit ``qos`` config or a concrete
         ``service_mode`` of another kind asks for a rebuild; the old one is
-        undeployed first. ``service_overrides`` (the tracing knobs) are
-        merged over the manager-wide ``service_kw``."""
+        undeployed first. ``service_overrides`` (the tracing knobs and the
+        robustness ones, ``faults`` and ``brownout``) are merged over the
+        manager-wide ``service_kw``."""
         if qos is not None and not isinstance(qos, QoSConfig):
             qos = QoSConfig.from_json(qos)    # validate before any teardown
         while True:
@@ -140,6 +142,7 @@ class DeploymentManager:
                         service_mode in (None, "auto")
                         or dep.service.kind == service_mode):
                     return dep
+                dep = None            # or the undeploy could not free it
                 self.undeploy(asset_id)
             with self._lock:
                 if asset_id in self._deployments:
@@ -177,6 +180,12 @@ class DeploymentManager:
         if dep is None:
             return False
         dep.service.close()
+        # finished requests hold a closed service in reference cycles (a
+        # token sink closes over its service): collect them now, so the
+        # deployment's weights and KV cache leave the card before a
+        # redeploy builds the next one
+        del dep
+        gc.collect()
         return True
 
     def get(self, asset_id: str) -> Deployment:

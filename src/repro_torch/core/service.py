@@ -34,8 +34,19 @@ late subscribers attach to and resume from a sequence cursor.
 Only the scheduler's worker thread touches CUDA tensors: stream events,
 job results and metrics carry Python ints and strings.
 
-Not ported yet: fault injection, retry, the watchdog, engine rebuild,
-brownout and ``health()`` (``/v2/health``).
+Robustness (``BatchedService``): an optional
+:class:`~repro_torch.serving.faults.FaultPlane` injects deterministic
+faults at the scheduler's boundaries; a request retired as
+``ENGINE_FAULT`` before any of its tokens reached a stream or a job
+buffer is requeued with exponential backoff (greedy decode makes the
+retry token-identical; its deadline stays absolute); a watchdog thread
+flags ticks over ``stall_budget_s`` and respawns a dead worker;
+``rebuild_after_faults`` consecutive faults rebuild the engine's state;
+a :class:`~repro_torch.serving.faults.BrownoutController` sheds
+best_effort work (SOFT) or all work (HARD) under sustained pressure;
+``health()`` backs ``GET /v2/health``. The watchdog touches no device
+state: a respawn flags the recovery (quarantine the active slots, reset
+the engine) and the new worker runs it before its first tick.
 """
 
 from __future__ import annotations
@@ -51,6 +62,9 @@ from typing import Any, Callable, Dict, Iterator, List, Optional
 
 from repro_torch.core.router import StreamEvent
 from repro_torch.core.wrapper import MAXError, MAXModelWrapper, PromptTooLong
+from repro_torch.serving.faults import (
+    BROWNOUT_STATES, BrownoutController, FaultPlane, FaultSpec, WorkerKill,
+)
 from repro_torch.serving.metrics import TOKEN_LATENCY_BUCKETS, MetricsRegistry
 from repro_torch.serving.qos import (
     AdmissionController, AdmissionError, QoSConfig, QueueFull,
@@ -456,6 +470,14 @@ class InferenceService(abc.ABC):
 
     # -- lifecycle / introspection ----------------------------------------
 
+    def health(self) -> Dict[str, Any]:
+        """Liveness/readiness/degradation for ``GET /v2/health``. A sync
+        service is live and ready while open (the request thread does the
+        work, there is no worker to die); the batched service overrides
+        this with its worker and brownout state."""
+        open_ = not getattr(self, "_closed", False)
+        return {"live": open_, "ready": open_, "degradation": "normal"}
+
     def stats(self) -> Dict[str, Any]:
         with self._jobs_lock:
             self._gc_jobs_locked()
@@ -810,6 +832,14 @@ class _Work:
     push: Optional[Callable] = None
     notify: Optional[Callable] = None
     last_tok_t: Optional[float] = None   # previous sync-point timestamp
+    # retry bookkeeping: a faulted request may requeue only while ZERO
+    # tokens were delivered outside the service (to a stream bridge or a
+    # job replay buffer); a token a client may have seen is never re-sent
+    sink: Optional[Callable] = None      # token_sink, reused on resubmit
+    qos: Optional[Dict[str, Any]] = None  # original QoS fields
+    deadline_at: Optional[float] = None  # absolute: retries never extend it
+    attempts: int = 0                    # completed (faulted) attempts
+    delivered: int = 0                   # tokens pushed to an external sink
 
 
 @dataclass
@@ -834,7 +864,10 @@ class BatchedService(InferenceService):
     prefill, then keeps admitting newcomers every tick. Dequeue order is
     the controller's: priority classes, then deficit-weighted fairness
     across clients. ``decode_chunk`` is the fused-decode granularity (one
-    host read per chunk)."""
+    host read per chunk). The robustness knobs (``faults``, ``brownout``,
+    ``max_retries``, ``retry_backoff_s``, ``stall_budget_s``,
+    ``rebuild_after_faults``, ``watchdog_interval_s``) take the JAX
+    package's defaults."""
 
     kind = "batched"
 
@@ -842,7 +875,14 @@ class BatchedService(InferenceService):
                  batch_window_s: float = 0.01, max_queue: int = 64,
                  request_timeout_s: float = 300.0,
                  decode_chunk: Optional[int] = None,
-                 stream_queue_depth: int = 256, seed: int = 0, **kw):
+                 stream_queue_depth: int = 256, seed: int = 0,
+                 faults: Optional[Any] = None,
+                 brownout: Optional[Any] = None,
+                 max_retries: int = 3,
+                 retry_backoff_s: float = 0.05,
+                 stall_budget_s: float = 5.0,
+                 rebuild_after_faults: int = 3,
+                 watchdog_interval_s: float = 0.1, **kw):
         if not wrapper.supports_generation():
             raise ValueError(
                 f"{wrapper.metadata.id!r} does not implement the generation "
@@ -852,9 +892,16 @@ class BatchedService(InferenceService):
             kw["qos"] = QoSConfig(max_queue=max_queue)
         super().__init__(wrapper, **kw)
         self.engine = wrapper.engine
+        # an unarmed spec attaches no plane at all: the scheduler's hooks
+        # stay bare `is not None` checks
+        spec = faults if isinstance(faults, FaultSpec) \
+            else FaultSpec.from_json(faults)
+        self.fault_plane: Optional[FaultPlane] = \
+            FaultPlane(spec) if spec.armed else None
         self.scheduler = ContinuousBatchingScheduler(
             self.engine, admission=self.admission,
-            decode_chunk=decode_chunk, tracer=self.tracer, seed=seed)
+            decode_chunk=decode_chunk, tracer=self.tracer, seed=seed,
+            faults=self.fault_plane)
         self.batch_window_s = batch_window_s
         self.max_queue = self.qos_cfg.max_queue
         self.request_timeout_s = request_timeout_s
@@ -867,6 +914,52 @@ class BatchedService(InferenceService):
         self._cv = threading.Condition()
         self._closed = False
         self._worker_error: Optional[str] = None
+        # -- supervision / retry / brownout --------------------------------
+        self.max_retries = max(0, int(max_retries))
+        self.retry_backoff_s = retry_backoff_s
+        self.stall_budget_s = stall_budget_s
+        self.rebuild_after_faults = max(0, int(rebuild_after_faults))
+        self.watchdog_interval_s = watchdog_interval_s
+        self._retry_q: List[tuple] = []   # (due on the serving clock, work)
+        self.retries = 0
+        self.worker_restarts = 0
+        self.engine_rebuilds = 0
+        self.tick_stalls = 0
+        self._faults_seen = 0             # metric-delta mirrors
+        self._pool_exhausted_seen = 0
+        self._tick_started: Optional[float] = None
+        self._stall_flagged = False
+        # set by the watchdog for the next worker to run before its first
+        # tick; a failed recovery holds readiness down until one succeeds
+        self._recovery: Optional[str] = None
+        self._recovery_error: Optional[str] = None
+        self._brownout: Optional[BrownoutController] = None
+        if brownout is not None:
+            self._brownout = BrownoutController(
+                brownout, metrics=self.metrics, model_id=self.model_id)
+            self.metrics.register_gauge(
+                "max_brownout_state",
+                lambda: BROWNOUT_STATES.index(self._brownout.state),
+                model=self.model_id)
+        for name, help_text in (
+            ("max_engine_faults_total",
+             "Requests retired as ENGINE_FAULT (injected or real)"),
+            ("max_retries_total",
+             "Automatic requeues of zero-delivery faulted requests"),
+            ("max_worker_restarts_total",
+             "Dead scheduler workers respawned by the watchdog"),
+            ("max_engine_rebuilds_total",
+             "Engine state rebuilds after repeated faults"),
+            ("max_tick_stalls_total",
+             "Scheduler ticks that exceeded the stall budget"),
+            ("max_brownout_transitions_total",
+             "Brownout state-machine transitions, by target state"),
+            ("max_brownout_shed_total",
+             "Requests shed at admission by brownout degradation"),
+            ("max_brownout_state",
+             "Current degradation state (0=normal, 1=soft, 2=hard)"),
+        ):
+            self.metrics.describe(name, help_text)
         self.metrics.register_gauge(
             "max_queue_depth", self.admission.depth, model=self.model_id)
         if self.engine.paged:
@@ -897,6 +990,12 @@ class BatchedService(InferenceService):
             target=self._worker, daemon=True,
             name=f"batched-{self.model_id}")
         self._thread.start()
+        # the watchdog outlives any one worker: it respawns dead workers
+        # and flags ticks that blow the stall budget
+        self._watchdog_thread = threading.Thread(
+            target=self._watchdog, daemon=True,
+            name=f"watchdog-{self.model_id}")
+        self._watchdog_thread.start()
 
     # -- request path ------------------------------------------------------
 
@@ -914,8 +1013,24 @@ class BatchedService(InferenceService):
                 f"admissible prompt: {self.engine.max_prompt_len()} tokens)")
         if extra:
             raise MAXError("extra model inputs are not ported yet")
+        if self._brownout is not None:
+            # re-evaluate with the live queue (an idle service cools down
+            # while the worker sleeps), then shed or clamp: HARD raises
+            # CircuitOpen for everyone, SOFT raises Degraded for
+            # best_effort and caps the generation budget of the rest
+            self._brownout.observe(self._queue_frac())
+            self._brownout.admit(_qos_field(qos, "priority")
+                                 or self.qos_cfg.default_priority)
+            mnt = gen_kw.get("max_new_tokens")
+            clamped = self._brownout.clamp(mnt if mnt is not None else 32)
+            if clamped is not None and clamped != mnt:
+                gen_kw = dict(gen_kw, max_new_tokens=clamped)
         work = _Work(prompt=prompt, gen_kw=gen_kw, t0=_mono(), job=job,
-                     push=push, notify=notify)
+                     push=push, notify=notify,
+                     qos=dict(qos) if qos else None)
+        dl = _qos_field(qos, "deadline_s")
+        if dl is not None:
+            work.deadline_at = work.t0 + float(dl)
 
         def sink(toks: List[int]):
             # runs at the scheduler's host read (worker thread, scheduler
@@ -934,8 +1049,13 @@ class BatchedService(InferenceService):
                 ).observe((now - work.last_tok_t) / len(toks))
             work.last_tok_t = now
             if work.push is not None:
+                # handed to an external consumer: from here on a fault is
+                # terminal for this request (a retry could duplicate what
+                # the client already saw)
+                work.delivered += len(toks)
                 work.push(list(toks), self.wrapper.format_stream_delta(toks))
 
+        work.sink = sink
         with self._cv:
             if self._closed:
                 raise MAXError(f"service for {self.model_id!r} is closed")
@@ -1175,6 +1295,11 @@ class BatchedService(InferenceService):
 
     def _finalize(self, work: _Work):
         req = work.request
+        if req.error_code == "ENGINE_FAULT" and self._should_retry(work):
+            # zero tokens delivered: the fault is invisible to the client,
+            # so requeue with backoff instead of answering 500
+            self._schedule_retry(work)
+            return
         if req.error_code == "CANCELLED":
             # user cancel / client disconnect: a first-class outcome, not
             # an error; partial output is dropped, the slot already freed
@@ -1230,6 +1355,8 @@ class BatchedService(InferenceService):
         with self._cv:
             works = list(self._inflight.values())
             self._inflight.clear()
+            works += [w for _, w in self._retry_q]   # parked for backoff
+            self._retry_q.clear()
         for work in works:
             work.envelope = self._error_envelope(msg, code)
             if work.job is not None:
@@ -1241,13 +1368,203 @@ class BatchedService(InferenceService):
                 except Exception:
                     pass
 
+    # -- retry with backoff ------------------------------------------------
+
+    def _queue_frac(self) -> float:
+        """Queue pressure as a fraction of the per-class admission bound
+        (the brownout controller's primary signal)."""
+        return self.scheduler.queued_count() / max(1, self.max_queue)
+
+    def _should_retry(self, work: _Work) -> bool:
+        """A faulted request may requeue only while the fault is invisible
+        (zero delivered tokens), attempts remain, its deadline has not
+        passed and the service is open."""
+        if self._closed or work.delivered:
+            return False
+        if work.attempts >= self.max_retries:
+            return False
+        if work.deadline_at is not None and _mono() >= work.deadline_at:
+            return False
+        return True
+
+    def _schedule_retry(self, work: _Work, *, locked: bool = False):
+        """Park ``work`` for resubmission after an exponential backoff;
+        the worker's wait wakes at the earliest due time."""
+        work.attempts += 1
+        due = _mono() + self.retry_backoff_s * (2 ** (work.attempts - 1))
+        self.retries += 1
+        self.metrics.inc("max_retries_total", model=self.model_id)
+        if work.request is not None and work.request.trace is not None:
+            work.request.trace.event("retry", attempt=work.attempts)
+
+        def park():
+            self._retry_q.append((due, work))
+            self._retry_q.sort(key=lambda t: t[0])
+            self._cv.notify_all()
+        if locked:
+            park()
+        else:
+            with self._cv:
+                park()
+
+    def _retry_wait_locked(self) -> Optional[float]:
+        """How long the idle worker may sleep (None: until notified)."""
+        if not self._retry_q:
+            return None
+        return max(0.001, self._retry_q[0][0] - _mono())
+
+    def _drain_due_retries_locked(self) -> List[_Work]:
+        """Resubmit every due retry (``_cv`` held). Returns the works
+        whose resubmission failed terminally, for the caller to finalize
+        outside the lock."""
+        failed: List[_Work] = []
+        now = _mono()
+        while self._retry_q and self._retry_q[0][0] <= now:
+            work = self._retry_q.pop(0)[1]
+            qos = work.qos
+            deadline_s = None
+            if work.deadline_at is not None:
+                deadline_s = max(0.0, work.deadline_at - _mono())
+            work.last_tok_t = None
+            try:
+                work.request = self.scheduler.submit(
+                    work.prompt,
+                    priority=_qos_field(qos, "priority"),
+                    client=_qos_field(qos, "client"),
+                    deadline_s=deadline_s,
+                    token_sink=work.sink, **work.gen_kw)
+            except Exception as e:
+                # admission refused the retry (queue full, rate limit):
+                # more backoff while attempts last, else the fault stands
+                if self._should_retry(work):
+                    self._schedule_retry(work, locked=True)
+                else:
+                    if work.request is not None:
+                        work.request.error = (
+                            f"{work.request.error}; retry rejected: {e}")
+                    failed.append(work)
+                continue
+            if work.request.trace is not None:
+                work.request.trace.event("retry_resubmit",
+                                         attempt=work.attempts)
+            if work.job is not None and self.tracer is not None:
+                work.job.trace_id = work.request.id   # trace follows retry
+            self._inflight[work.request.id] = work
+        return failed
+
+    # -- supervision -------------------------------------------------------
+
+    def _observe_pressure(self):
+        """Feed scheduler-stat deltas to metrics and the brownout
+        controller, once per worker iteration (host counters only)."""
+        ss = self.scheduler.stats
+        df = ss.engine_faults - self._faults_seen
+        if df > 0:
+            self._faults_seen = ss.engine_faults
+            self.metrics.inc("max_engine_faults_total", df,
+                             model=self.model_id)
+            if self._brownout is not None:
+                self._brownout.note("fault", df)
+        dp = ss.pool_exhausted - self._pool_exhausted_seen
+        if dp > 0:
+            self._pool_exhausted_seen = ss.pool_exhausted
+            if self._brownout is not None:
+                self._brownout.note("pool_exhausted", dp)
+        if self._brownout is not None:
+            self._brownout.observe(self._queue_frac())
+
+    def _reset_engine(self, what: str) -> bool:
+        """Rebuild the engine's mutable state (worker thread only). A
+        failure (a sticky device error survives any reset) is recorded and
+        holds readiness down; it is never hidden."""
+        try:
+            self.engine.reset()
+        except Exception as e:
+            self._worker_error = self._recovery_error = \
+                f"{what} recovery failed: {e}"
+            return False
+        self._recovery_error = None
+        self.scheduler.fault_streak = 0
+        return True
+
+    def _maybe_rebuild(self):
+        if (self.rebuild_after_faults
+                and self.scheduler.fault_streak >= self.rebuild_after_faults):
+            self._rebuild_engine(
+                f"{self.scheduler.fault_streak} consecutive engine faults")
+
+    def _rebuild_engine(self, reason: str):
+        """Quarantine every active slot (their requests retry or fail as
+        ENGINE_FAULT), rebuild the engine's pool, caches and prefix cache,
+        and go on. Queued work never touched the engine and rides
+        through."""
+        self.scheduler.quarantine_active(f"engine rebuild: {reason}",
+                                         site="rebuild")
+        if self._reset_engine("rebuild"):
+            self.engine_rebuilds += 1
+            self.metrics.inc("max_engine_rebuilds_total",
+                             model=self.model_id)
+        self._reap()                      # requeue or fail the quarantined
+
+    def _watchdog(self):
+        """Flags ticks that blow the stall budget and respawns a dead
+        worker (an escaped ``WorkerKill``, or any bug the per-batch
+        isolation could not catch). Host state only."""
+        while True:
+            time.sleep(self.watchdog_interval_s)
+            if self._closed:
+                return
+            t0 = self._tick_started
+            if (t0 is not None and not self._stall_flagged
+                    and _mono() - t0 > self.stall_budget_s):
+                self._stall_flagged = True
+                self.tick_stalls += 1
+                self.metrics.inc("max_tick_stalls_total",
+                                 model=self.model_id)
+                if self._brownout is not None:
+                    self._brownout.note("stall")
+            if not self._thread.is_alive() and not self._closed:
+                self._respawn_worker()
+
+    def _respawn_worker(self):
+        """The worker died mid-tick, so the engine's state is not trusted.
+        Start a fresh worker that quarantines the active slots (their
+        requests retry or fail; queued work persists) and resets the
+        engine before its first tick: the device stays the worker's."""
+        self.worker_restarts += 1
+        self.metrics.inc("max_worker_restarts_total", model=self.model_id)
+        self._tick_started = None
+        self._stall_flagged = False
+        with self._cv:
+            if self._closed:
+                return
+            self._recovery = "worker died mid-batch"
+            self._thread = threading.Thread(
+                target=self._worker, daemon=True,
+                name=f"batched-{self.model_id}")
+            self._thread.start()
+
+    def _recover(self):
+        """A respawned worker's first act: drop the dead worker's slots and
+        their unread first tokens without reading them, reset the engine,
+        and finalize what retired."""
+        reason, self._recovery = self._recovery, None
+        self.scheduler.quarantine_active(reason, site="worker")
+        self._reset_engine("respawn")
+        self._reap()
+
     def _worker(self):
+        self.engine.bind_thread()
+        if self._recovery is not None:
+            self._recover()
         while True:
             with self._cv:
-                while not self.scheduler.has_work() and not self._closed:
-                    self._cv.wait()
-                if self._closed:
-                    break
+                while (not self.scheduler.has_work() and not self._closed
+                       and not (self._retry_q
+                                and self._retry_q[0][0] <= _mono())):
+                    self._cv.wait(timeout=self._retry_wait_locked())
+                failed = [] if self._closed \
+                    else self._drain_due_retries_locked()
                 # coalescing window: simultaneous arrivals share the first
                 # prefill/decode batch
                 deadline = _mono() + self.batch_window_s
@@ -1257,10 +1574,19 @@ class BatchedService(InferenceService):
                     if remaining <= 0:
                         break
                     self._cv.wait(timeout=remaining)
-                if self._closed:
-                    break
+                closed = self._closed
+            for work in failed:
+                self._finalize(work)
+            if closed:
+                break
             try:
                 self._run_batch()
+            except WorkerKill as e:
+                # injected worker death: leave without cleanup, like a
+                # crashed thread; the watchdog respawns and the next
+                # worker recovers
+                self._worker_error = f"worker killed: {e}"
+                return
             except Exception as e:              # the worker must survive a
                 self._worker_error = str(e)     # bad batch
                 self.scheduler.quarantine_active(f"batch failed: {e}")
@@ -1268,20 +1594,57 @@ class BatchedService(InferenceService):
         self._fail_all(f"service for {self.model_id!r} is closed")
 
     def _run_batch(self):
-        """Tick the scheduler until it drains, admitting newcomers between
-        ticks (continuous batching); the controller decides who gets the
-        next free slot."""
-        while not self._closed and self.scheduler.has_work():
-            self.scheduler.tick()
+        """Tick the scheduler until it drains, admitting newcomers and due
+        retries between ticks (continuous batching); the controller
+        decides who gets the next free slot."""
+        sched = self.scheduler
+        while not self._closed:
+            with self._cv:
+                failed = self._drain_due_retries_locked()
+            for work in failed:
+                self._finalize(work)
+            if not sched.has_work():
+                break
+            self._tick_started = _mono()      # the watchdog's stall clock
+            sched.tick()
+            self._tick_started = None
+            self._stall_flagged = False
             self._reap()
+            self._observe_pressure()
+            self._maybe_rebuild()
         self._reap()
 
     # -- introspection / lifecycle ----------------------------------------
 
     def idle(self) -> bool:
-        """True when nothing is queued or active."""
+        """True when nothing is queued, active or parked for retry."""
         with self._cv:
-            return not self._inflight and not self.scheduler.has_work()
+            return (not self._inflight and not self._retry_q
+                    and not self.scheduler.has_work())
+
+    def health(self) -> Dict[str, Any]:
+        """Liveness/readiness/degradation for ``GET /v2/health``: live
+        while open; ready with a live worker, the circuit closed and no
+        failed recovery. ``draining`` is the fleet's (always False
+        here)."""
+        alive = self._thread.is_alive()
+        state = "normal"
+        if self._brownout is not None:
+            state = self._brownout.observe(self._queue_frac())
+        return {
+            "live": not self._closed,
+            "ready": (not self._closed and alive and state != "hard"
+                      and self._recovery_error is None),
+            "draining": False,
+            "degradation": state,
+            "worker_alive": alive,
+            "worker_restarts": self.worker_restarts,
+            "tick_stalls": self.tick_stalls,
+            "engine_faults": self.scheduler.stats.engine_faults,
+            "engine_rebuilds": self.engine_rebuilds,
+            "retry_pending": len(self._retry_q),
+            "queue_depth": self.scheduler.queued_count(),
+        }
 
     def stats(self) -> Dict[str, Any]:
         out = super().stats()
@@ -1314,6 +1677,19 @@ class BatchedService(InferenceService):
             # also nested under kv_cache; top-level so dashboards need not
             # know the KV layout to find hit rates
             out["prefix_cache"] = self.engine.prefix_stats()
+        out["robustness"] = {
+            "engine_faults": ss.engine_faults,
+            "retries": self.retries,
+            "retry_pending": len(self._retry_q),
+            "worker_restarts": self.worker_restarts,
+            "engine_rebuilds": self.engine_rebuilds,
+            "tick_stalls": self.tick_stalls,
+            "worker_alive": self._thread.is_alive(),
+            "brownout": (self._brownout.stats() if self._brownout is not None
+                         else {"state": "normal"}),
+            "fault_injection": (self.fault_plane.stats()
+                                if self.fault_plane is not None else None),
+        }
         if self._worker_error:
             out["last_worker_error"] = self._worker_error
         return out
@@ -1326,6 +1702,7 @@ class BatchedService(InferenceService):
         # still holds; the direct _fail_all covers a worker stuck past the
         # join timeout (each work is popped once under the lock)
         self._thread.join(timeout=30)
+        self._watchdog_thread.join(timeout=2 * self.watchdog_interval_s + 1)
         self._fail_all(f"service for {self.model_id!r} is closed")
         super().close()
 
@@ -1339,8 +1716,10 @@ def make_service(wrapper: MAXModelWrapper, mode: str = "auto",
     """``mode``: 'sync' | 'batched' | 'auto' (batched iff the wrapper speaks
     the generation protocol). ``qos`` / ``metrics`` / ``job_ttl_s`` and the
     tracing knobs (``trace`` / ``trace_buffer`` / ``slow_trace_ms``) apply
-    to either kind; the remaining kwargs are batched-service tuning and
-    are ignored by sync services."""
+    to either kind; the remaining kwargs, the robustness knobs (``faults``,
+    ``brownout``, ``max_retries``, ``stall_budget_s``, ...) included, are
+    batched-service tuning and are ignored by sync services (a sync call
+    has no worker to supervise or queue to shed)."""
     shared = {k: service_kw.pop(k)
               for k in ("qos", "metrics", "job_ttl_s",
                         "trace", "trace_buffer", "slow_trace_ms")

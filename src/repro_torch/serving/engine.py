@@ -151,6 +151,13 @@ class GenerationEngine:
                     * k.element_size()
         return 0
 
+    def bind_thread(self):
+        """Make the engine's card the calling thread's current device: a
+        thread that takes over the engine (a respawned worker) starts on
+        the process's default one."""
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+
     def _h2d(self, arr, dtype) -> torch.Tensor:
         """Host array -> fresh device tensor without waiting for the
         device (pinned staging, non-blocking copy)."""
@@ -725,8 +732,11 @@ class GenerationEngine:
         """Rebuild every piece of mutable serving state: the KV cache (and
         on paged engines the pool, tables, refcounts and prefix cache), the
         host length/active mirrors and the device next-token buffer.
-        Weights survive; active slots are abandoned."""
+        Weights survive; active slots are abandoned. The old cache is
+        dropped before the new one is allocated, so a rebuild's device
+        peak stays at one cache (when nothing else holds the old one)."""
         max_batch, max_seq = self.max_batch, self.max_seq
+        self._cache = self._next_tok = None
         self._slot_blocks: List[List[int]] = [[] for _ in range(max_batch)]
         self._free_pool: List[int] = list(range(self.kv_pool_blocks))
         self.prefix_cache: Optional[PrefixCache] = None

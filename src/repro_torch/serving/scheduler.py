@@ -46,7 +46,18 @@ these same points (submit, QoS enqueue/grant/shed, deferred park/unpark,
 admission, first token, each chunk, stall, cancel, retire); with
 ``tracer=None`` each hook is one attribute check.
 
-Not ported yet: fault injection (the JAX scheduler's ``faults=``).
+Fault boundary: the two places a tick touches the engine, prefill
+admission and the fused chunk dispatch and read, are supervised. An
+exception there retires only the implicated slots as ``ENGINE_FAULT``
+(an injected fault names its victim; a real exception implicates the
+whole co-batch, whose device state is no longer trusted) and never
+unwinds the worker. Sinks and ``req.output`` are fed only from the
+tick's read, so a faulted chunk delivers no token. An optional
+:class:`~repro_torch.serving.faults.FaultPlane` (``faults=``) injects
+deterministic faults at exactly these boundaries; with ``faults=None``
+each hook is one ``is not None`` check and the tick keeps its one host
+read. ``fault_streak`` counts consecutive faults with no clean chunk in
+between (the supervising service's rebuild trigger).
 
 Thread-safety: ``submit``, ``cancel`` and ``poll`` are lock-free (a
 deque append, a dict lookup and a flag store are atomic, and the
@@ -68,6 +79,7 @@ import numpy as np
 import torch
 
 from repro_torch.serving.engine import GenerationEngine
+from repro_torch.serving.faults import FaultPlane, InjectedFault
 from repro_torch.serving.tracing import now as _now
 
 
@@ -141,8 +153,16 @@ class SchedulerStats:
 class ContinuousBatchingScheduler:
     def __init__(self, engine: GenerationEngine, *, seed: int = 0,
                  retain_completed: int = 1024, admission=None,
-                 decode_chunk: Optional[int] = None, tracer=None):
+                 decode_chunk: Optional[int] = None, tracer=None,
+                 faults=None):
         self.engine = engine
+        # Optional fault-injection plane (FaultPlane | FaultSpec | dict);
+        # None keeps every hook a bare attribute check
+        if faults is not None and not isinstance(faults, FaultPlane):
+            faults = FaultPlane(faults)
+        self.faults = faults
+        # consecutive engine faults with no committed chunk in between
+        self.fault_streak = 0
         # Optional[Tracer]: spans at the existing sync points; every hook
         # is guarded, so tracer=None costs one attribute check
         self.tracer = tracer
@@ -368,16 +388,32 @@ class ContinuousBatchingScheduler:
             req.trace.event("fault", site=site, generated=len(req.output))
         self._retire(req)
         self.stats.engine_faults += 1
+        self.fault_streak += 1
 
-    def quarantine_active(self, reason: str):
-        """Retire every active slot as ENGINE_FAULT after a failed dispatch
-        or read (the batch's device state is no longer trusted) and drop
-        unread first tokens. Queued work is untouched."""
+    def _quarantine_slot(self, slot: int, msg: str, site: str):
+        """Evict one active slot after a fault and drop its unread first
+        token. The release passes no tokens (a faulted slot's KV must not
+        reach the prefix cache) and is defensive: the fault may have left
+        the device unusable."""
+        req = self.active.pop(slot, None)
+        if req is None:
+            return
+        try:
+            self.engine.release_slot(slot)
+        except Exception:
+            pass
+        self._pending_first = [(r, f) for (r, f) in self._pending_first
+                               if r is not req]
+        self._engine_fault_retire(req, msg, site)
+
+    def quarantine_active(self, reason: str, *, site: str = "engine"):
+        """Retire every active slot as ENGINE_FAULT and drop unread first
+        tokens without reading them: after a real dispatch or read fault,
+        a dead worker or an engine rebuild, the batch's device state is no
+        longer trusted. Queued work is untouched."""
         with self._lock:
             for slot in sorted(self.active):
-                req = self.active.pop(slot)
-                self.engine.release_slot(slot)
-                self._engine_fault_retire(req, reason, "engine")
+                self._quarantine_slot(slot, reason, site)
             self._pending_first.clear()
 
     def _maybe_finish(self, req: Request):
@@ -433,6 +469,8 @@ class ContinuousBatchingScheduler:
         ENGINE_FAULT and the slot stays free."""
         req.admitted_at_s = _now()
         try:
+            if self.faults is not None:
+                self.faults.check_admission(self.stats.ticks)
             first = self.engine.insert_request(req.prompt, slot)
         except Exception as e:     # the engine released the slot already
             self._engine_fault_retire(req, str(e), "admission")
@@ -573,6 +611,7 @@ class ContinuousBatchingScheduler:
         """One iteration: admit -> decode chunk -> one host read -> retire."""
         t0 = _now()
         emitted_before = self.stats.emitted_tokens
+        faults_before = self.stats.engine_faults
         chunk_k = 0
         with self._lock:
             self._sweep_cancelled()
@@ -594,17 +633,35 @@ class ContinuousBatchingScheduler:
                 k = 1 << (k.bit_length() - 1)
                 chunk_k = k
                 try:
+                    if self.faults is not None:
+                        # may raise InjectedFault, stall, or raise
+                        # WorkerKill: a BaseException that unwinds past
+                        # tick (the lock is released) and kills the
+                        # driving thread, leaving this tick's first tokens
+                        # unread for the watchdog's recovery to drop
+                        self.faults.check_chunk(self.stats.ticks,
+                                                sorted(self.active))
                     toks, emitted = self.engine.step_chunk(
                         self._gen, self._temps, budgets, k)
+                except InjectedFault as e:
+                    # scoped: only the named victim retires; the co-batch
+                    # skips this chunk (nothing ran) and resumes next tick
+                    if e.slot is not None and e.slot in self.active:
+                        self._quarantine_slot(e.slot, str(e), e.site)
+                    else:
+                        self.quarantine_active(str(e), site=e.site)
+                    chunk_k = 0
                 except Exception as e:
                     # a failed dispatch leaves the co-batch's device state
                     # untrusted: retire it, keep the loop alive
-                    self.quarantine_active(f"chunk dispatch failed: {e}")
+                    self.quarantine_active(f"chunk dispatch failed: {e}",
+                                           site="chunk")
                     chunk_k = 0
             try:
                 firsts, toks, emitted = self._read(toks, emitted)
             except Exception as e:     # the sync surfaces device failures
-                self.quarantine_active(f"chunk sync failed: {e}")
+                self.quarantine_active(f"chunk sync failed: {e}",
+                                       site="chunk")
                 firsts, toks, emitted = [], None, None
             for (req, _), first in zip(self._pending_first, firsts):
                 req.output.append(first)
@@ -634,6 +691,8 @@ class ContinuousBatchingScheduler:
                     if not req.done and (self.engine.context_len(slot)
                                          >= self.engine.max_seq):
                         self._overflow(req)
+                if self.stats.engine_faults == faults_before:
+                    self.fault_streak = 0         # a clean committed chunk
             if self.tracer is not None:
                 # host mirrors only: pool and prefix counts never read the
                 # device

@@ -5,11 +5,12 @@ Both ``MAXServer``s listen on ``127.0.0.1:0`` with reduced ``qwen3-4b``
 get the same v1 and v2 requests: the same statuses and the same envelopes,
 apart from timing fields (``latency_ms``, ``uptime_s``,
 ``mean_latency_ms``), the server's name and ``framework``. The port's route
-table is the JAX table without ``GET /v2/health``, ``swagger.json`` covers
-every route it serves, the QoS, sync and trace fields are served, and a
-field of a still unported feature (replicas, mesh slices, faults,
-brownout) answers 501 ``NOT_IMPLEMENTED`` without touching the
-deployment.
+table is the JAX table, ``swagger.json`` covers every route it serves, the
+QoS, sync, trace, ``faults`` and ``brownout`` fields are served (a bad
+``faults`` or ``brownout`` spec answers 400 as on the JAX server and
+leaves the deployment untouched), and a field of a still unported feature
+(replicas, mesh slices) answers 501 ``NOT_IMPLEMENTED`` without touching
+the deployment.
 """
 
 import json
@@ -39,8 +40,7 @@ from repro_torch.core.api import (  # noqa: E402
 BUILD_KW = {"max_seq": 64, "max_batch": 4}
 SERVICE_KW = {"batch_window_s": 0.15}
 TIMING = ("latency_ms", "uptime_s", "mean_latency_ms")
-# the JAX routes the port serves: all but /v2/health, which comes with
-# the robustness half of the REST stack
+# the JAX routes the port serves: every one
 PORTED_V2 = {("GET", "/v2/models"),
              ("POST", "/v2/model/{model_id}/predict"),
              ("POST", "/v2/model/{model_id}/predict_batch"),
@@ -55,6 +55,7 @@ PORTED_V2 = {("GET", "/v2/models"),
              ("DELETE", "/v2/model/{model_id}"),
              ("GET", "/v2/model/{model_id}/stats"),
              ("GET", "/v2/metrics"),
+             ("GET", "/v2/health"),
              ("GET", "/v2/routes")}
 
 
@@ -203,11 +204,9 @@ def test_route_table_is_the_ported_subset_of_jax():
             if r[2] == "v1" or (r[0], r[1]) in PORTED_V2]
     assert rows(build_router()) == want
     assert {(m, p) for m, p, v, _ in want if v == "v2"} == PORTED_V2
-    assert [r for r in rows(jax_build_router()) if r not in want] == \
-        [("GET", "/v2/health", "v2", "application/json")]
+    assert [r for r in rows(jax_build_router()) if r not in want] == []
     assert UNPORTED_PREDICT_FIELDS == ()
-    assert set(UNPORTED_DEPLOY_FIELDS) == {"replicas", "mesh_slice",
-                                           "faults", "brownout"}
+    assert set(UNPORTED_DEPLOY_FIELDS) == {"replicas", "mesh_slice"}
 
 
 def test_routes_endpoint_and_swagger_cover_exactly_what_is_served(servers):
@@ -231,8 +230,6 @@ def test_routes_endpoint_and_swagger_cover_exactly_what_is_served(servers):
 @pytest.mark.parametrize("path,body,field", [
     ("/v2/model/qwen3-4b/deploy", {"replicas": 2}, "replicas"),
     ("/v2/model/qwen3-4b/deploy", {"mesh_slice": "auto"}, "mesh_slice"),
-    ("/v2/model/qwen3-4b/deploy", {"faults": {}}, "faults"),
-    ("/v2/model/qwen3-4b/deploy", {"brownout": {}}, "brownout"),
 ])
 def test_unported_fields_answer_501_and_change_nothing(servers, path, body,
                                                        field):
@@ -245,6 +242,32 @@ def test_unported_fields_answer_501_and_change_nothing(servers, path, body,
     assert env["status"] == "error"
     assert env["error"]["code"] == "NOT_IMPLEMENTED"
     assert field in env["error"]["message"]
+    assert ts.manager.get("qwen3-4b") is dep       # not redeployed
+    stats1 = _req(ts, "GET", "/v2/model/qwen3-4b/stats")[1]["service"]
+    assert stats1["submitted"] == stats0["submitted"]
+
+
+@pytest.mark.parametrize("body", [
+    {"faults": {"chunk_rate": 2.0}},
+    {"faults": {"wat": 1}},
+    {"faults": {"script": [{"tick": 0, "site": "nope"}]}},
+    {"faults": [{"chunk_rate": 0.1}]},          # per replica: no replicas
+    {"faults": "chaos"},
+    {"brownout": {"queue_soft": -1}},
+    {"brownout": {"nope": 1}},
+    {"brownout": "soft"},
+], ids=["rate", "key", "site", "list", "type", "b-value", "b-key", "b-type"])
+def test_bad_robustness_knobs_answer_400_and_change_nothing(servers, body):
+    """A bad ``faults`` or ``brownout`` spec answers the JAX server's 400
+    ``INVALID_INPUT``, validated before any teardown."""
+    _both(servers, "POST", "/v2/model/qwen3-4b/deploy", {})
+    _, ts = servers
+    dep = ts.manager.get("qwen3-4b")
+    stats0 = _req(ts, "GET", "/v2/model/qwen3-4b/stats")[1]["service"]
+    jb, tb = _both(servers, "POST", "/v2/model/qwen3-4b/deploy", body)
+    assert tb == jb
+    assert tb["error"]["code"] == "INVALID_INPUT"
+    assert next(iter(body)) in tb["error"]["message"]
     assert ts.manager.get("qwen3-4b") is dep       # not redeployed
     stats1 = _req(ts, "GET", "/v2/model/qwen3-4b/stats")[1]["service"]
     assert stats1["submitted"] == stats0["submitted"]
@@ -265,11 +288,15 @@ def test_unported_fields_answer_501_and_change_nothing(servers, path, body,
     ("/v2/model/qwen3-4b/deploy", {"slow_trace_ms": 5}, "slow_trace_ms"),
     ("/v2/model/qwen3-4b/deploy", {"service": "sync", "paged": True},
      "sync"),
+    ("/v2/model/qwen3-4b/deploy", {"faults": {"chunk_rate": 0.0}},
+     "faults"),
+    ("/v2/model/qwen3-4b/deploy", {"brownout": {"retry_after_s": 2.0}},
+     "brownout"),
 ])
 def test_formerly_unported_fields_are_served_as_jax(servers, path, body,
                                                     field):
-    """The QoS, trace and sync fields that answered 501 before now answer
-    as the JAX server does."""
+    """The QoS, trace, sync and robustness fields that answered 501 before
+    now answer as the JAX server does."""
     _both(servers, "POST", "/v2/model/qwen3-4b/deploy", {})
     jb, tb = _both(servers, "POST", path, body)
     assert tb.get("status") in ("ok", "partial"), (field, tb)

@@ -335,3 +335,20 @@ def test_flash_kernel_source_is_3xtf32_on_the_tensor_cores():
     assert "s[j][r] += small[j][r] + part[j][r];" in code
     assert "o[n][r] += small[r] + part[r];" in code
     assert "split_tf32(p[kk][" in code      # P is always split
+
+
+def test_faults_module_is_the_reference_copy():
+    """``serving/faults.py`` is the JAX package's module, statement for
+    statement, with the port's imports: pure Python (no torch, numpy or
+    JAX), so the same spec and seed fire the same faults in both."""
+    port = (PORT / "serving" / "faults.py").read_text()
+    ref = (ROOT / "src" / "repro" / "serving" / "faults.py").read_text()
+    tree = ast.parse(port)
+    roots = set(_imported_roots(tree))
+    assert roots <= {"__future__", "random", "threading", "time",
+                     "collections", "dataclasses", "typing", "repro_torch"}
+
+    def body(src):
+        mod = ast.parse(src)
+        return ast.dump(ast.Module(body=mod.body[1:], type_ignores=[]))
+    assert body(port.replace("repro_torch.", "repro.")) == body(ref)

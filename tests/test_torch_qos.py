@@ -206,9 +206,9 @@ def test_error_status_covers_qos_codes():
     assert ERROR_STATUS["RATE_LIMITED"] == 429
     assert ERROR_STATUS["DEADLINE_EXCEEDED"] == 504
     from repro.core.api import ERROR_STATUS as JAX_STATUS
+    assert ERROR_STATUS["DEGRADED"] == ERROR_STATUS["CIRCUIT_OPEN"] == 503
     assert {k: v for k, v in JAX_STATUS.items()
-            if k not in ("INVALID_MESH_SLICE", "DEGRADED",
-                         "CIRCUIT_OPEN")} == {
+            if k != "INVALID_MESH_SLICE"} == {
         k: v for k, v in ERROR_STATUS.items() if k != "NOT_IMPLEMENTED"}
 
 
@@ -340,6 +340,9 @@ def test_one_host_read_per_tick_with_sinks(models):
 # ---------------------------------------------------------------------------
 
 BUILD_KW = {"max_seq": 64, "max_batch": 2}
+# a stall budget no CPU tick reaches (a JAX tick that compiles could pass
+# the default 5 s and add a series the other server lacks)
+SERVICE_KW = {"batch_window_s": 0.01, "stall_budget_s": 600.0}
 
 
 @pytest.fixture(scope="module")
@@ -351,10 +354,10 @@ def servers():
         jax.random.PRNGKey(0))
     params = jax.tree_util.tree_map(np.asarray, jparams)
     with JaxServer(registry=reg, build_kw=BUILD_KW,
-                   service_kw={"batch_window_s": 0.01}) as js, \
+                   service_kw=SERVICE_KW) as js, \
             MAXServer(build_kw={**BUILD_KW, "device": "cpu",
                                 "params": params},
-                      service_kw={"batch_window_s": 0.01}) as ts:
+                      service_kw=SERVICE_KW) as ts:
         yield js, ts
 
 
@@ -453,18 +456,10 @@ def test_metrics_endpoint_same_series_as_jax(servers):
         outs.append((raw.decode(), json.loads(js)["metrics"]))
     (jtext, jm), (ttext, tm) = outs
 
-    # the robustness half (faults, retry, the watchdog, brownout) is not
-    # ported: the JAX server's series of it (a tick over its stall budget
-    # under a loaded host, say) have no counterpart yet
-    robustness = ("max_tick_stalls", "max_engine_faults", "max_retries",
-                  "max_worker_restarts", "max_engine_rebuilds",
-                  "max_brownout")
-
     def names(text):
         return sorted({line.split("{")[0].split(" ")[0]
                        for line in text.splitlines()
-                       if line and not line.startswith("#")
-                       and not line.startswith(robustness)})
+                       if line and not line.startswith("#")})
     assert names(ttext) == names(jtext)
     assert set(tm["histograms"]) == set(jm["histograms"])
     assert set(tm["gauges"]) == set(jm["gauges"])

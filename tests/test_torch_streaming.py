@@ -446,8 +446,11 @@ def test_stats_surface_streaming_metrics(servers):
     assert svc["streams"] == {"active": 0, "started": 1, "cancelled": 0}
     assert svc["ttft"]["count"] >= 1 and svc["inter_token"]["count"] >= 1
     jsvc = _req(servers[0], "GET", f"/v2/model/{MODEL}/stats")[1]["service"]
-    assert set(svc) - {"engine_faults", "prefills"} == \
-        set(jsvc) - {"robustness"}
+    assert set(svc) - {"engine_faults", "prefills"} == set(jsvc)
+    # equal robustness counters, but for stalls: a JAX tick that compiles
+    # may outlast the stall budget
+    rob, jrob = (dict(x["robustness"], tick_stalls=None) for x in (svc, jsvc))
+    assert rob == jrob
 
 
 def test_cancel_is_not_starved_by_back_to_back_ticks(params):
